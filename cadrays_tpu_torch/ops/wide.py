@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from cadrays_tpu_torch.ops.intersect import safe_inv_dir
+from cadrays_tpu_torch.ops.intersect import safe_inv_dir, tri_intersect_packed
 
 STACK_CAP = 192
 WIDTH = 8
@@ -27,7 +27,6 @@ _COUNT_SHIFT = 24
 _LEAF_MASK = (1 << _COUNT_SHIFT) - 1
 _EMPTY = 0x7FFFFFFF
 _INF = 3e30
-_EPS = 1e-7
 
 
 def _stack_fits(geom) -> bool:
@@ -106,7 +105,7 @@ def _launch(geom, origin, direction, t_max, any_hit):
     out_v = torch.empty(R, dtype=torch.float32, device=dev)
     if R == 0:
         return {"t": out_t, "tri": out_tri, "u": out_u, "v": out_v}
-    fn = load()[0].crt_wide_trace
+    fn = load("wide_trace")[0].crt_wide_trace
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     err = fn(*[ptr(a) for a in args], ctypes.c_int(R),
@@ -179,29 +178,9 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
                 n_tri += int(count.sum())
             live_k = kk[None, :] < count[:, None]
             tid = torch.where(live_k, first[:, None] + kk[None, :], 0)
-            row = tris[tid]  # (n, K, 12)
-            r0, r1, r2 = row[..., 0], row[..., 1], row[..., 2]
-            r3, r4, r5 = row[..., 3], row[..., 4], row[..., 5]
-            r6, r7, r8 = row[..., 6], row[..., 7], row[..., 8]
-            lox, loy, loz = ox[la, None], oy[la, None], oz[la, None]
-            ldx, ldy, ldz = dx[la, None], dy[la, None], dz[la, None]
-            pvx = ldy * r8 - ldz * r7
-            pvy = ldz * r6 - ldx * r8
-            pvz = ldx * r7 - ldy * r6
-            det = (r3 * pvx + r4 * pvy) + r5 * pvz
-            det_ok = torch.abs(det) > 1e-12
-            inv_det = torch.where(det_ok, torch.reciprocal(det), 0.0)
-            tvx = lox - r0
-            tvy = loy - r1
-            tvz = loz - r2
-            uu = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv_det
-            qvx = tvy * r5 - tvz * r4
-            qvy = tvz * r3 - tvx * r5
-            qvz = tvx * r4 - tvy * r3
-            vv = ((ldx * qvx + ldy * qvy) + ldz * qvz) * inv_det
-            tt = ((r6 * qvx + r7 * qvy) + r8 * qvz) * inv_det
-            hit = (det_ok & (uu >= -_EPS) & (vv >= -_EPS)
-                   & (uu + vv <= 1.0 + _EPS) & (tt > _EPS) & live_k)
+            tt, uu, vv, hit = tri_intersect_packed(
+                origin[la, None], direction[la, None], tris[tid])  # (n, K)
+            hit = hit & live_k
             tt = torch.where(hit, tt, _INF)
             bt = tt.amin(dim=1)
             # lowest k among the minima: the kernel's strict-< scan order

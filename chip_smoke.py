@@ -3,16 +3,25 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; exits non-zero, printing no result, without one.
-It builds the hand-written kernels from this checkout, holds each
-against its plain PyTorch version on the card, drives the port's main
-path (the persistent-wavefront forward render of the full Cornell box,
-262,144 lanes, spp 32, depth 5, 96 steps, then a full 1024x1024 frame
-through Renderer.render), holds the kernel against its plain version
-again on the rays the main path hands it (262,144 and 1,048,576
-lanes), checks the card's render against the CPU's, and times the
-kernel against its bound on the main path's sorted bounce rays. Each phase prints one JSON
-line; then the card's name and power limit, the kernels line, and last
-the result line.
+It builds the three hand-written kernels from this checkout in parallel
+(K1 wide_trace, K2 binary_trace, K3 bruteforce), holds each against its
+plain PyTorch version on the card, and drives the port's main path (the
+persistent-wavefront forward render of the full Cornell box, 262,144
+lanes, spp 32, depth 5, 96 steps, then a full 1024x1024 frame through
+Renderer.render) once under each traversal backend that selects a
+kernel: "wide" (K1, the default), "pallas" (K2) and "bruteforce" (K3).
+Each backend's render must launch its own kernel 192 times; the K2
+render must match the "wide" render, and K3's hits must match K1's up
+to ties and to lanes within rounding of a triangle's edge or the ray's
+end (K3 rounds otherwise than K1, as the reference's brute-force walk
+does against its BVH walks). Each kernel is
+held against its plain version again on every launch of a short
+render_persistent and of a 1024x1024 Renderer.render, on the rays the
+main path hands it;
+the card's render is checked against the CPU's under each backend; and
+each kernel is timed against its bound on the main path's sorted bounce
+rays. Each phase prints one JSON line; then the card's name and power
+limit, the kernels line, and last the result line.
 """
 from __future__ import annotations
 
@@ -22,14 +31,19 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# operations of one child-box slab test and one Moller-Trumbore test as
-# written in kernels/wide_trace.cu (adds, multiplies, min/max, compares)
+# operations of one box slab test (a K1 child box or a K2 node) and one
+# Moller-Trumbore test as written in kernels/wide_trace.cu and
+# kernels/binary_trace.cu (adds, multiplies, min/max, compares), and of
+# one ray-triangle test of kernels/bruteforce.cu (33 for the four
+# products, 16 for the sign-folded test, 1 for the argmin compare)
 OPS_PER_BOX_TEST = 27
 OPS_PER_TRI_TEST = 53
+OPS_PER_BRUTE_TEST = 50
 
 
 def emit(obj) -> None:
@@ -60,7 +74,7 @@ def main() -> int:
         Renderer, render_persistent_image)
     from cadrays_tpu_torch.integrator.wavefront import build_wavefront
     from cadrays_tpu_torch.kernels import build as kbuild
-    from cadrays_tpu_torch.ops import wide
+    from cadrays_tpu_torch.ops import binary, bruteforce, traverse, wide
     from cadrays_tpu_torch.scene.flatten import flatten_parts
     from cadrays_tpu_torch.core.bsdf import material
     from cadrays_tpu_torch.geometry.mesh import TriangleMesh
@@ -71,37 +85,76 @@ def main() -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
 
+    # backend -> its kernel: wrapper module, wrapper, plain version
+    kern = {
+        "wide": dict(k="k1", name="wide_trace", mod=wide,
+                     wrapper=wide.trace_wide, plain=wide.trace_wide_ref,
+                     replaces="cadrays_tpu/ops/pallas_wide.py:163",
+                     profile="wide_trace_kernel"),
+        "pallas": dict(k="k2", name="binary_trace", mod=binary,
+                       wrapper=binary.trace_binary,
+                       plain=binary.trace_binary_ref,
+                       replaces="cadrays_tpu/ops/pallas_traverse.py:60",
+                       profile="binary_trace_kernel"),
+        "bruteforce": dict(k="k3", name="bruteforce", mod=bruteforce,
+                           wrapper=bruteforce.trace_bruteforce,
+                           plain=bruteforce.trace_bruteforce_ref,
+                           replaces="cadrays_tpu/ops/mxu_intersect.py:89",
+                           profile="bruteforce_kernel"),
+    }
+
+    def reset_counts():
+        for kn in kern.values():
+            kn["wrapper"].launches = 0
+
+    def read_counts():
+        return {b: kn["wrapper"].launches for b, kn in kern.items()}
+
     # ---- 1. environment ------------------------------------------------
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": kind,
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi})
 
-    # ---- 2. build the kernel from this checkout ------------------------
-    t0 = time.perf_counter()
-    _, ptxas = kbuild.load(force=True)
-    emit({"phase": "build", "kernel": "wide_trace",
-          "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in ptxas.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    # ---- 2. build the kernels from this checkout, one nvcc each --------
+    def timed_build(name):
+        t0 = time.perf_counter()
+        _, ptxas = kbuild.load(name, force=True)
+        return time.perf_counter() - t0, ptxas
 
-    def check_k1(g, o, d, tm, any_hit, got=None, stats=None):
-        """Kernel against trace_wide_ref on the same inputs: equal hit
-        masks and t, tri equal except on tie lanes (equal t); returns
-        (hits, tie lanes, max |err| of t/u/v on lanes with equal tri)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kern)) as ex:
+        builds = {kn["name"]: ex.submit(timed_build, kn["name"])
+                  for kn in kern.values()}
+        builds = {name: f.result() for name, f in builds.items()}
+    for name, (secs, ptxas) in builds.items():
+        emit({"phase": "build", "kernel": name, "seconds": secs,
+              "ptxas": [ln.strip() for ln in ptxas.splitlines()
+                        if "registers" in ln or "spill" in ln]})
+    emit({"phase": "build_all", "seconds": time.perf_counter() - t0})
+
+    def check(backend, g, o, d, tm, any_hit, got=None, stats=None):
+        """Kernel against its plain version on the same inputs: equal hit
+        masks and t, tri equal except on tie lanes (equal t), u and v
+        equal where tri is; returns (hits, tie lanes, max |err| of t/u/v
+        on lanes with equal tri)."""
+        kn = kern[backend]
         if got is None:
-            got = wide.trace_wide(g, o, d, tm, any_hit=any_hit)
-        ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit, stats=stats)
+            got = kn["wrapper"](g, o, d, tm, any_hit=any_hit)
+        extra = {} if stats is None else {"stats": stats}
+        ref = kn["plain"](g, o, d, tm, any_hit=any_hit, **extra)
         torch.cuda.synchronize()
         hit = ref["tri"] >= 0
-        assert torch.equal(got["tri"] >= 0, hit), any_hit
-        assert torch.equal(got["t"], ref["t"]), any_hit
+        assert torch.equal(got["tri"] >= 0, hit), (backend, any_hit)
+        assert torch.equal(got["t"], ref["t"]), (backend, any_hit)
         ties = (got["tri"] != ref["tri"]) & hit
         same = (got["tri"] == ref["tri"]) & hit
+        for k in ("u", "v"):
+            assert torch.equal(got[k][same], ref[k][same]), (backend, k)
         err = max(float((got[k][same] - ref[k][same]).abs().max())
                   if bool(same.any()) else 0.0 for k in ("t", "u", "v"))
         return int(hit.sum()), int(ties.sum()), err
 
-    # ---- 3. K1 against its plain version on the card -------------------
+    # ---- 3. each kernel against its plain version, synthetic rays ------
     scene = cornell_box(full=True, sphere_res=24)
     cam = cornell_camera()
     data = scene.flatten(cam, device=dev)
@@ -145,131 +198,253 @@ def main() -> int:
               torch.full((n,), 1e30, device=dev)),
              ("random_mesh_capped", mgeom, cuda(m_o), cuda(m_d),
               m_tm.contiguous())]
-    max_err = 0.0
-    for name, g, o, d, tm in cases:
-        for any_hit in (False, True):
-            got = wide.trace_wide(g, o, d, tm, any_hit=any_hit)
-            hits, ties, err = check_k1(g, o, d, tm, any_hit, got=got)
-            max_err = max(max_err, err)
-            if name == "random_mesh_capped":
-                assert bool((got["tri"][::7] == -1).all())
-                assert not bool((got["tri"][capped] >= 0).any())
-            emit({"phase": "k1_check", "case": name, "any_hit": any_hit,
-                  "rays": n, "hits": hits, "tie_lanes": ties,
-                  "max_abs_err": err})
+    max_err = {b: 0.0 for b in kern}
+    for backend, kn in kern.items():
+        for name, g, o, d, tm in cases:
+            for any_hit in (False, True):
+                got = kn["wrapper"](g, o, d, tm, any_hit=any_hit)
+                hits, ties, err = check(backend, g, o, d, tm, any_hit,
+                                        got=got)
+                max_err[backend] = max(max_err[backend], err)
+                if name == "random_mesh_capped":
+                    assert bool((got["tri"][::7] == -1).all())
+                    assert not bool((got["tri"][capped] >= 0).any())
+                emit({"phase": f"{kn['k']}_check", "case": name,
+                      "any_hit": any_hit, "rays": n, "hits": hits,
+                      "tie_lanes": ties, "max_abs_err": err})
 
-    # ---- 4. the main path ---------------------------------------------
+    # ---- 4. the main path, under each backend --------------------------
     params = RenderParams(ray_depth=5)
     W = H = 1024
     R = (W * H) // 4
     spp, n_steps = 32, 96
     pids = torch.arange(R, device=dev)
-    # warm-up at a small size: loads PyTorch's CUDA modules
-    render_persistent(data, cam, params, W, H, 1, 2, pixel_ids=pids[:4096])
-    torch.cuda.synchronize()
-    wide.trace_wide.launches = 0
-    t0 = time.perf_counter()
-    img, cnt, n_alive = render_persistent(data, cam, params, W, H, spp,
-                                          n_steps, pixel_ids=pids,
-                                          return_stats=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = wide.trace_wide.launches
-    done = int(cnt.sum())
-    mean = float((img / cnt[:, None].clamp(min=1)).mean())
-    assert launches == 2 * n_steps, launches
-    assert bool(torch.isfinite(img).all())
-    assert 0.05 < mean < 1.0, mean  # Cornell HDR mean (tests: 0.2-0.4)
-    emit({"phase": "main_path", "call": "render_persistent", "lanes": R,
-          "spp": spp, "n_steps": n_steps, "depth": params.ray_depth,
-          "seconds": dt, "samples_per_s": done / dt,
-          "quota_completion": done / (R * spp),
-          "active_lane_steps": int(n_alive.sum()),
-          "k1_launches": launches, "hdr_mean": mean})
-
-    # where a step's time goes: device kernel time and launches per step
-    # (torch.profiler over 8 steps of the same call) against the
-    # unprofiled wall time per step above
     from torch.profiler import ProfilerActivity, profile
 
-    prof_steps = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        render_persistent(data, cam, params, W, H, spp, prof_steps,
-                          pixel_ids=pids)
+    launches, images = {}, {}
+    for backend, kn in kern.items():
+        traverse.set_backend(backend)
+        # warm-up at a small size: loads PyTorch's CUDA modules
+        render_persistent(data, cam, params, W, H, 1, 2,
+                          pixel_ids=pids[:4096])
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    per_name = {}
-    for e in kern:
-        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    dev_ms = sum(per_name.values()) / prof_steps / 1e3
-    k1_ms = sum(v for k, v in per_name.items()
-                if "wide_trace_kernel" in k) / prof_steps / 1e3
-    step_ms = dt / n_steps * 1e3
-    assert kern, "torch.profiler recorded no device kernels"
-    emit({"phase": "step_profile", "steps": prof_steps,
-          "wall_ms_per_step": step_ms,
-          "device_ms_per_step": dev_ms,
-          "device_busy_share": dev_ms / step_ms,
-          "kernels_per_step": len(kern) / prof_steps,
-          "k1_device_ms_per_step": k1_ms,
-          "top_kernels_ms_per_step": [
-              [k[:80], v / prof_steps / 1e3] for k, v in
-              sorted(per_name.items(), key=lambda kv: -kv[1])[:5]]})
+        reset_counts()
+        t0 = time.perf_counter()
+        img, cnt, n_alive = render_persistent(data, cam, params, W, H, spp,
+                                              n_steps, pixel_ids=pids,
+                                              return_stats=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        launches[backend] = counts[backend]
+        done = int(cnt.sum())
+        pix_img = img / cnt[:, None].clamp(min=1)
+        mean = float(pix_img.mean())
+        assert counts[backend] == 2 * n_steps, counts
+        assert all(c == 0 for b, c in counts.items() if b != backend), counts
+        assert bool(torch.isfinite(img).all())
+        assert 0.05 < mean < 1.0, mean  # Cornell HDR mean (tests: 0.2-0.4)
+        images[backend] = pix_img.reshape(H // 4, W, 3).cpu().numpy()
+        line = {"phase": "main_path", "backend": backend,
+                "call": "render_persistent", "lanes": R, "spp": spp,
+                "n_steps": n_steps, "depth": params.ray_depth,
+                "seconds": dt, "samples_per_s": done / dt,
+                "quota_completion": done / (R * spp),
+                "active_lane_steps": int(n_alive.sum()),
+                f"{kn['k']}_launches": counts[backend], "launches": counts,
+                "hdr_mean": mean}
+        if backend != "wide":
+            # K2 walks with K1's arithmetic, so its render must match
+            # K1's. K3 finds the same hits up to ties, but breaks the
+            # 1-ulp ties between the coplanar back-to-back faces of the
+            # full box (glossy box top, glass box bottom) by its own
+            # rounding, as the reference's bruteforce does against its
+            # gather walk; its hits are held to K1's in phase
+            # k3_main_path_check instead
+            res = compare(images[backend], images["wide"], pix_tol=0.02)
+            assert res["match"] or backend == "bruteforce", res
+            line["vs_wide"] = res
+        emit(line)
 
-    wide.trace_wide.launches = 0
-    t0 = time.perf_counter()
-    frame = Renderer(params, device=dev).render(scene, cam, W, H, spp=4)
-    torch.cuda.synchronize()
-    dt_frame = time.perf_counter() - t0
-    fmean = float(frame.mean())
-    assert frame.shape == (H, W, 3) and bool(torch.isfinite(frame).all())
-    assert 0.05 < fmean < 1.0, fmean
-    emit({"phase": "main_path", "call": "Renderer.render", "width": W,
-          "height": H, "spp": 4, "seconds": dt_frame,
-          "samples_per_s": W * H * 4 / dt_frame,
-          "k1_launches": wide.trace_wide.launches, "hdr_mean": fmean})
+        # where a step's time goes: device kernel time and launches per
+        # step (torch.profiler over 8 steps of the same call) against the
+        # unprofiled wall time per step above
+        prof_steps = 8
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            render_persistent(data, cam, params, W, H, spp, prof_steps,
+                              pixel_ids=pids)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        per_name = {}
+        for e in events:
+            per_name[e.name] = (per_name.get(e.name, 0.0)
+                                + e.time_range.elapsed_us())
+        dev_ms = sum(per_name.values()) / prof_steps / 1e3
+        k_ms = sum(v for k, v in per_name.items()
+                   if kn["profile"] in k) / prof_steps / 1e3
+        step_ms = dt / n_steps * 1e3
+        assert events, "torch.profiler recorded no device kernels"
+        emit({"phase": "step_profile", "backend": backend,
+              "steps": prof_steps, "wall_ms_per_step": step_ms,
+              "device_ms_per_step": dev_ms,
+              "device_busy_share": dev_ms / step_ms,
+              "kernels_per_step": len(events) / prof_steps,
+              f"{kn['k']}_device_ms_per_step": k_ms,
+              "top_kernels_ms_per_step": [
+                  [k[:80], v / prof_steps / 1e3] for k, v in
+                  sorted(per_name.items(), key=lambda kv: -kv[1])[:5]]})
 
-    # ---- 4b. K1 against its plain version on the main path's own rays --
-    # every launch of a 4-step render_persistent at the main path's
-    # 262,144 lanes and of a 1024x1024 spp-1 Renderer.render (1,048,576
-    # lanes) is checked on the very inputs the integrator gave it
-    launch = wide._launch
-    seen = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        frame = Renderer(params, device=dev).render(scene, cam, W, H, spp=4)
+        torch.cuda.synchronize()
+        dt_frame = time.perf_counter() - t0
+        counts = read_counts()
+        fmean = float(frame.mean())
+        assert frame.shape == (H, W, 3) and bool(torch.isfinite(frame).all())
+        assert 0.05 < fmean < 1.0, fmean
+        assert counts[backend] > 0, counts
+        assert all(c == 0 for b, c in counts.items() if b != backend), counts
+        emit({"phase": "main_path", "backend": backend,
+              "call": "Renderer.render", "width": W, "height": H, "spp": 4,
+              "seconds": dt_frame, "samples_per_s": W * H * 4 / dt_frame,
+              f"{kn['k']}_launches": counts[backend], "hdr_mean": fmean})
+    traverse.set_backend("wide")
 
-    def checked_launch(g, o, d, tm, any_hit):
-        got = launch(g, o, d, tm, any_hit)
-        hits, ties, err = check_k1(g, o, d, tm, any_hit, got=got)
-        s = seen.setdefault((o.shape[0], any_hit), {
-            "launches": 0, "hits": 0, "tie_lanes": 0, "max_abs_err": 0.0})
-        s["launches"] += 1
-        s["hits"] += hits
-        s["tie_lanes"] += ties
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        return got
+    def mt64(g, o, d, tri):
+        """Float64 Moller-Trumbore of each ray against its triangle: the
+        signed distance to the triangle's nearest edge (min of u, v and
+        1 - u - v), t, and the cosine of incidence, which scales how far
+        fp32 rounding can move a ray across an edge or along itself."""
+        rows = g.tris_packed[tri.long()].double()
+        o, d = o.double(), d.double()
+        p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        pv = torch.linalg.cross(d, e2)
+        det = (e1 * pv).sum(-1)
+        tv = o - p0
+        qv = torch.linalg.cross(tv, e1)
+        u = (tv * pv).sum(-1) / det
+        v = (d * qv).sum(-1) / det
+        t = (e2 * qv).sum(-1) / det
+        n = torch.linalg.cross(e1, e2)
+        cos = (d * n).sum(-1).abs() / (n.norm(dim=-1) * d.norm(dim=-1))
+        return torch.stack([u, v, 1 - u - v]).amin(0), t, cos
 
-    wide._launch = checked_launch
-    render_persistent(data, cam, params, W, H, spp, 4, pixel_ids=pids)
-    Renderer(params, device=dev).render(scene, cam, W, H, spp=1)
-    wide._launch = launch
-    assert {k[0] for k in seen} == {R, W * H}, sorted(seen)
-    for (lanes, any_hit), s in sorted(seen.items()):
-        max_err = max(max_err, s["max_abs_err"])
-        emit({"phase": "k1_main_path_check", "lanes": lanes,
-              "any_hit": any_hit, **s})
+    # a lane within this much of a decision boundary, in mt64's scaled
+    # units (about 8 fp32 ulp at the box's unit scale), may go either way
+    ROUNDING = 2.0 ** -20
 
-    # ---- 5. the card against the CPU -----------------------------------
-    small = {}
-    for d in ("cuda", "cpu"):
-        sd = scene.flatten(cam, device=d)
-        small[d] = render_persistent_image(sd, cam, params, 32, 32,
-                                           spp=4).cpu().numpy()
-    res = compare(small["cuda"], small["cpu"], pix_tol=0.02)
-    assert res["match"], res
-    emit({"phase": "card_vs_cpu", "size": 32, "spp": 4, **res})
+    def k3_vs_k1(g, o, d, tm, any_hit, got):
+        """K3's hits against K1's plain version on the same rays, under
+        the reference's contract between its bruteforce and gather walks
+        (tests/test_geometry.py:276-284): equal hit masks, t within
+        rtol 1e-4, tri equal on more than 99% of hit lanes. The two
+        walkers round differently, and so do the reference's:
+        - a lane where only one of them hits must lie within ROUNDING of
+          a decision boundary of the triangle it hit (an edge, or t_max);
+        - a lane where they hit different triangles must be a tie: t
+          equal within rtol 1e-6 (a few ulp), and the float64 hit point
+          on both triangles, within ROUNDING. Ties are counted as
+          coplanar faces of opposite orientation (the full box's glass
+          bottom on the glossy top), coplanar of the same orientation,
+          and crossing (two faces meeting at an edge)."""
+        ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
+        tm = tm.expand(o.shape[0])
+        k3_hit = got["tri"] >= 0
+        hit = ref["tri"] >= 0
+        mdiff = k3_hit != hit
+        out = {"mask_differs": int(mdiff.sum()), "max_boundary_dist": 0.0}
+        if out["mask_differs"]:
+            inside, t, cos = mt64(g, o[mdiff], d[mdiff], torch.where(
+                k3_hit, got["tri"], ref["tri"])[mdiff])
+            tmd = tm[mdiff].double()
+            dist = torch.minimum(inside.abs(), (t - tmd).abs() / tmd) * cos
+            out["max_boundary_dist"] = float(dist.max())
+            assert bool((dist <= ROUNDING).all()), (any_hit, out)
+        if any_hit:
+            return out
+        hit = hit & k3_hit
+        assert torch.allclose(got["t"][hit], ref["t"][hit], rtol=1e-4)
+        diff = hit & (got["tri"] != ref["tri"])
+        n_diff = int(diff.sum())
+        assert n_diff <= 0.01 * int(hit.sum()), n_diff
+        assert torch.allclose(got["t"][diff], ref["t"][diff], rtol=1e-6,
+                              atol=0.0), "K3 and K1 differ off a tie"
+        normals = []
+        for tri in (got["tri"][diff], ref["tri"][diff]):
+            inside, _, cos = mt64(g, o[diff], d[diff], tri)
+            assert bool((inside * cos >= -ROUNDING).all()), \
+                "a tie off one of its triangles"
+            rows = g.tris_packed[tri.long()]
+            n = torch.linalg.cross(rows[:, 3:6], rows[:, 6:9])
+            normals.append(n / n.norm(dim=-1, keepdim=True))
+        cos = (normals[0] * normals[1]).sum(-1)
+        out.update({"tri_differs": n_diff,
+                    "coplanar_opposite": int((cos < -0.999).sum()),
+                    "coplanar_same": int((cos > 0.999).sum()),
+                    "crossing": int((cos.abs() <= 0.999).sum())})
+        return out
 
-    # ---- 6. K1 timing at the main path's shape -------------------------
+    # ---- 4b. each kernel against its plain version on the main path's
+    # own rays: every launch of a 4-step render_persistent at the main
+    # path's 262,144 lanes and of a 1024x1024 spp-1 Renderer.render
+    # (1,048,576 lanes), on the very inputs the integrator gave it
+    for backend, kn in kern.items():
+        mod = kn["mod"]
+        launch = mod._launch
+        seen = {}
+
+        def checked_launch(g, o, d, tm, any_hit, _b=backend, _l=launch,
+                           _seen=seen):
+            got = _l(g, o, d, tm, any_hit)
+            hits, ties, err = check(_b, g, o, d, tm, any_hit, got=got)
+            s = _seen.setdefault((o.shape[0], any_hit), {
+                "launches": 0, "hits": 0, "tie_lanes": 0,
+                "max_abs_err": 0.0})
+            s["launches"] += 1
+            s["hits"] += hits
+            s["tie_lanes"] += ties
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            if _b == "bruteforce":
+                vs = s.setdefault("vs_k1", {})
+                for k, v in k3_vs_k1(g, o, d, tm, any_hit, got).items():
+                    vs[k] = (max(vs.get(k, v), v) if k == "max_boundary_dist"
+                             else vs.get(k, 0) + v)
+            return got
+
+        traverse.set_backend(backend)
+        mod._launch = checked_launch
+        try:
+            render_persistent(data, cam, params, W, H, spp, 4,
+                              pixel_ids=pids)
+            Renderer(params, device=dev).render(scene, cam, W, H, spp=1)
+        finally:
+            mod._launch = launch
+            traverse.set_backend("wide")
+        assert {k[0] for k in seen} == {R, W * H}, sorted(seen)
+        assert sum(s["launches"] for s in seen.values()) >= 8, seen
+        for (lanes, any_hit), s in sorted(seen.items()):
+            max_err[backend] = max(max_err[backend], s["max_abs_err"])
+            emit({"phase": f"{kn['k']}_main_path_check", "backend": backend,
+                  "lanes": lanes, "any_hit": any_hit, **s})
+
+    # ---- 5. the card against the CPU, under each backend --------------
+    for backend in kern:
+        traverse.set_backend(backend)
+        small = {}
+        for d in ("cuda", "cpu"):
+            sd = scene.flatten(cam, device=d)
+            small[d] = render_persistent_image(sd, cam, params, 32, 32,
+                                               spp=4).cpu().numpy()
+        traverse.set_backend("wide")
+        res = compare(small["cuda"], small["cpu"], pix_tol=0.02)
+        assert res["match"], res
+        emit({"phase": "card_vs_cpu", "backend": backend, "size": 32,
+              "spp": 4, **res})
+
+    # ---- 6. kernel timing at the main path's shape ---------------------
     state, bounce = build_wavefront(data, cam, params, W, H, 0, pids)
     with torch.no_grad():
         state, _ = bounce(state, 0)  # first bounce, sorted wavefront
@@ -291,47 +466,69 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    table_bytes = sum(t.numel() * t.element_size() for t in
-                      (geom.wboxes, geom.wmeta, geom.worder,
-                       geom.tris_packed))
-    timing = {}
-    for any_hit in (False, True):
-        stats = {}
-        hits, ties, err = check_k1(geom, o, d, tm, any_hit, stats=stats)
-        max_err = max(max_err, err)
-        ms = time_ms(lambda: wide.trace_wide(geom, o, d, tm,
-                                             any_hit=any_hit), 20)
-        plain_ms = time_ms(lambda: wide.trace_wide_ref(geom, o, d, tm,
-                                                       any_hit=any_hit), 3)
-        nbytes = R * (6 * 4 + 4 + 4 * 4) + table_bytes
-        ops = (stats["box_tests"] * OPS_PER_BOX_TEST
-               + stats["tri_tests"] * OPS_PER_TRI_TEST)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS_PER_S * 1e3
-        timing[any_hit] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes, ops=ops, **stats)
-        emit({"phase": "k1_timing", "any_hit": any_hit, "rays": R,
-              "live_rays": int((tm > 0).sum()), "hits": hits,
-              "tie_lanes": ties, "max_abs_err": err, **timing[any_hit],
-              "library_ms": None,
-              "library_note": "no single PyTorch call computes a BVH "
-                              "traversal"})
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # t_max in and t, tri, u, v out on every lane; o and d only on live
+    # lanes (t_max > 0): a dead lane's answer needs nothing else
+    live = int((tm > 0).sum())
+    ray_bytes = R * (4 + 4 * 4) + live * 6 * 4
+    tables = {
+        "wide": nbytes(geom.wboxes, geom.wmeta, geom.worder,
+                       geom.tris_packed),
+        "pallas": nbytes(geom.nodes_packed, geom.tris_packed),
+        "bruteforce": nbytes(bruteforce.tri_tables(geom), geom.tris_packed),
+    }
+    t_pad = bruteforce.tri_tables(geom).shape[0]
+    timing = {b: {} for b in kern}
+    for backend, kn in kern.items():
+        for any_hit in (False, True):
+            stats = {} if backend != "bruteforce" else None
+            hits, ties, err = check(backend, geom, o, d, tm, any_hit,
+                                    stats=stats)
+            max_err[backend] = max(max_err[backend], err)
+            ms = time_ms(lambda: kn["wrapper"](geom, o, d, tm,
+                                               any_hit=any_hit), 20)
+            plain_ms = time_ms(lambda: kn["plain"](geom, o, d, tm,
+                                                   any_hit=any_hit), 3)
+            if backend == "bruteforce":
+                # every live lane against every padded triangle row
+                stats = {"ray_tri_tests": live * t_pad}
+                ops = live * t_pad * OPS_PER_BRUTE_TEST
+            else:
+                ops = (stats["box_tests"] * OPS_PER_BOX_TEST
+                       + stats["tri_tests"] * OPS_PER_TRI_TEST)
+            b_bytes = ray_bytes + tables[backend]
+            t_bytes = b_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / FP32_FLOPS_PER_S * 1e3
+            timing[backend][any_hit] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=b_bytes, ops=ops, **stats)
+            emit({"phase": f"{kn['k']}_timing", "backend": backend,
+                  "any_hit": any_hit, "rays": R,
+                  "live_rays": live, "hits": hits,
+                  "tie_lanes": ties, "max_abs_err": err,
+                  **timing[backend][any_hit], "library_ms": None,
+                  "library_note": "no single PyTorch call computes a BVH "
+                                  "traversal or a brute-force closest hit"})
 
     # ---- 7. kernels ----------------------------------------------------
-    close, anyh = timing[False], timing[True]
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "wide_trace", "route": "cuda",
-        "source": "cadrays_tpu_torch/kernels/wide_trace.cu",
-        "replaces": "cadrays_tpu/ops/pallas_wide.py:163",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": close["ms"], "plain_ms": close["plain_ms"],
-        "bound_ms": close["bound_ms"], "bound_by": close["bound_by"],
-        "library_ms": None,
-        "any_hit_ms": anyh["ms"], "any_hit_plain_ms": anyh["plain_ms"],
-        "any_hit_bound_ms": anyh["bound_ms"], "check": "passed"}]})
+    rows = []
+    for backend, kn in kern.items():
+        close, anyh = timing[backend][False], timing[backend][True]
+        rows.append({
+            "name": kn["name"], "route": "cuda",
+            "source": f"cadrays_tpu_torch/kernels/{kn['name']}.cu",
+            "replaces": kn["replaces"], "launches": launches[backend],
+            "max_abs_err": max_err[backend],
+            "ms": close["ms"], "plain_ms": close["plain_ms"],
+            "bound_ms": close["bound_ms"], "bound_by": close["bound_by"],
+            "library_ms": None,
+            "any_hit_ms": anyh["ms"], "any_hit_plain_ms": anyh["plain_ms"],
+            "any_hit_bound_ms": anyh["bound_ms"], "check": "passed"})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -19,6 +19,8 @@ PKG = os.path.join(ROOT, "cadrays_tpu_torch")
 
 def test_import_pulls_in_no_jax_in_a_fresh_process():
     code = ("import sys, cadrays_tpu_torch, cadrays_tpu_torch.ops.wide, "
+            "cadrays_tpu_torch.ops.binary, cadrays_tpu_torch.ops.bruteforce, "
+            "cadrays_tpu_torch.ops.traverse, "
             "cadrays_tpu_torch.integrator.renderer, "
             "cadrays_tpu_torch.testing.scenes, "
             "cadrays_tpu_torch.kernels.build\n"

@@ -6,10 +6,43 @@ carried across as numpy arrays (scene_data_from_numpy) must equal the
 port's own flatten.
 """
 import dataclasses
+import fcntl
+import subprocess
 
 import numpy as np
 import pytest
 import torch
+
+
+def _build_reference_native_libraries():
+    """Build the reference's native libraries, complete, before any test
+    of any worker loads them.
+
+    The reference compiles each library straight to its final path when
+    the file is missing or older than its source. Under pytest-xdist
+    several workers can do that at once, and a worker that finds the
+    half-written file fails to load it ("file too short"), in whichever
+    test file first needs the library. Every worker imports this module
+    while it collects, before it runs any test. So each worker calls the
+    reference's own loader here, under an fcntl lock on the library's
+    source: the first builds the library once, and the others find it
+    complete and up to date. A failed build is left to the reference to
+    report where a test needs the library.
+    """
+    from cadrays_tpu.modeling import csg
+    from cadrays_tpu.native import build
+
+    for src, load in ((build._SRC, build.load_library),
+                      (csg._SRC, csg._load)):
+        with open(src, "rb") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                load()
+            except (OSError, RuntimeError, subprocess.SubprocessError):
+                pass
+
+
+_build_reference_native_libraries()
 
 
 def _tree_to_numpy(obj, prefix=""):

@@ -215,7 +215,8 @@ def test_cornell_matches_gather_and_pallas(cornell_geoms, kind):
 
 def test_trace_dispatch_and_wide_guards(cornell_geoms):
     """trace() on CPU tensors runs the plain version and launches no
-    kernel; a scene without a usable wide tree raises, never falls back."""
+    kernel; trace_wide raises on a scene without a usable wide tree, and
+    trace() then takes the binary walker, chosen by the geometry."""
     from cadrays_tpu_torch.ops import wide
     from cadrays_tpu_torch.ops.traverse import occluded, trace, trace_sorted
 
@@ -237,4 +238,15 @@ def test_trace_dispatch_and_wide_guards(cornell_geoms):
                                                  dtype=torch.int32))
     assert not wide.fits_wide(placeholder)
     with pytest.raises(ValueError):
-        trace(placeholder, torch.from_numpy(o), torch.from_numpy(d), tm)
+        wide.trace_wide(placeholder, torch.from_numpy(o),
+                        torch.from_numpy(d), tm)
+    # the backend switch decides by the geometry, before any launch: with
+    # no wide tree the "wide" backend goes on to the binary walker (K2),
+    # as the reference's traverse.py:130-142 does
+    from cadrays_tpu_torch.ops.binary import trace_binary_ref
+
+    got = trace(placeholder, torch.from_numpy(o), torch.from_numpy(d), tm)
+    want = trace_binary_ref(placeholder, torch.from_numpy(o),
+                            torch.from_numpy(d), tm)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
