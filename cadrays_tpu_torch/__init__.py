@@ -1,11 +1,12 @@
 """cadrays_tpu_torch — the PyTorch / CUDA port of the cadrays_tpu renderer.
 
 A second package beside the JAX reference. It renders the persistent
-wavefront path tracer on an NVIDIA H100: plain tensor code is PyTorch,
-and the BVH8 traversal that the reference wrote as a Pallas TPU kernel
-is a hand-written CUDA kernel (``kernels/wide_trace.cu``, wrapped by
-``ops/wide.trace_wide``). On CPU tensors the same wrapper runs the
-kernel's plain PyTorch version, which the tests hold against the
+wavefront path tracer on an NVIDIA H100, on baked and on two-level
+instanced scenes: plain tensor code is PyTorch, and the traversal
+kernels that the reference wrote in Pallas for the TPU are hand-written
+CUDA kernels (``kernels/*.cu``; the BVH8 walk ``wide_trace.cu`` is
+wrapped by ``ops/wide.trace_wide``). On CPU tensors each wrapper runs
+its kernel's plain PyTorch version, which the tests hold against the
 reference.
 
 This package imports torch and numpy only: nothing of the JAX stack and

@@ -50,9 +50,6 @@ def _check_supported(scene: SceneData) -> None:
     if scene.emissive.count > 0:
         raise NotImplementedError(
             "emissive-triangle NEE is not ported yet: ROADMAP item 11")
-    if scene.geometry.instanced:
-        raise NotImplementedError(
-            "instanced scenes are not ported yet: ROADMAP item 13")
 
 
 def build_wavefront(scene: SceneData, camera: Camera, params: RenderParams,

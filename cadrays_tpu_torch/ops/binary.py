@@ -29,10 +29,6 @@ _LEAF_MASK = (1 << 24) - 1
 
 
 def _check_geometry(geom) -> None:
-    if geom.instanced:
-        raise NotImplementedError(
-            "instanced binary traversal is not ported yet: ROADMAP "
-            "queue A, item 13")
     if geom.nodes_packed.ndim != 2 or geom.nodes_packed.shape[1] != 8:
         raise ValueError("trace_binary: nodes_packed must be (N, 8)")
     if geom.tris_packed.ndim != 2 or geom.tris_packed.shape[1] != 12:
@@ -47,6 +43,13 @@ def trace_binary(geom, origin, direction, t_max, any_hit: bool = False):
     ``tri >= 0`` is meaningful.
     """
     _check_geometry(geom)
+    if geom.instanced:
+        # the reference's K2 refuses two-level scenes too
+        # (pallas_traverse.py:50-51); ops/traverse.trace sends them to
+        # trace_wide
+        raise ValueError(
+            "trace_binary: K2 does not trace instanced (two-level) "
+            "scenes; trace() sends them to trace_wide")
     if origin.device.type == "cpu":
         return trace_binary_ref(geom, origin, direction, t_max,
                                 any_hit=any_hit)
@@ -106,6 +109,12 @@ def trace_binary_ref(geom, origin, direction, t_max, any_hit: bool = False,
     rules, same operation order): each iteration visits one node for
     every ray whose walk has not ended.
 
+    On an instanced (two-level) scene, which K2 refuses, it is the
+    reference's gather walk (traverse.py:233-240): a ray visits each
+    node in that node's space, moved there by ``inst_inv[node_inst]``
+    (world space where node_inst is -1), and leaves index the fused
+    object-space triangle table.
+
     stats: optional dict; accumulates "box_tests" (nodes visited) and
     "tri_tests" (triangles tested), the work these rays need, for
     bounds on the card.
@@ -132,6 +141,15 @@ def trace_binary_ref(geom, origin, direction, t_max, any_hit: bool = False,
         n = node[act]
         row = nodes[n]
         o, ia = origin[act], inv[act]
+        d = direction[act]
+        if geom.instanced:
+            ins = geom.node_inst[n]
+            world = (ins < 0)[:, None]
+            m = geom.inst_inv[ins.clamp(min=0).long()]  # (n, 3, 4)
+            o = torch.where(world, o, (m[..., :3] * o[:, None, :]).sum(-1)
+                            + m[..., 3])
+            d = torch.where(world, d, (m[..., :3] * d[:, None, :]).sum(-1))
+            ia = safe_inv_dir(d)
         t0 = (row[:, 0:3] - o) * ia
         t1 = (row[:, 3:6] - o) * ia
         lo = torch.minimum(t0, t1)
@@ -154,7 +172,7 @@ def trace_binary_ref(geom, origin, direction, t_max, any_hit: bool = False,
             count = leafbits[at_leaf] >> 24
             if stats is not None:
                 n_tri += int(count.clamp(max=MAX_LEAF).sum())
-            lo_, ld_ = origin[la], direction[la]
+            lo_, ld_ = o[at_leaf], d[at_leaf]
             for k in range(MAX_LEAF):
                 live = k < count
                 tid = torch.where(live, first + k, 0)

@@ -75,9 +75,12 @@ def tri_tables(geom):
 
 def _check_geometry(geom) -> None:
     if geom.instanced:
-        raise NotImplementedError(
-            "instanced brute-force intersection is not ported yet: ROADMAP "
-            "queue A, item 13")
+        # object-space triangles: only the walkers that transform rays
+        # per instance can trace them (ops/traverse.trace sends such
+        # scenes to K1 variant b, as the reference does)
+        raise ValueError(
+            "trace_bruteforce: K3 does not trace instanced (two-level) "
+            "scenes; trace() sends them to trace_wide")
     if not fits_bruteforce(geom):
         raise ValueError(
             f"trace_bruteforce: {geom.tris_packed.shape[0]} triangle rows, "

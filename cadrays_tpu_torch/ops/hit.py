@@ -4,6 +4,12 @@ The wavefront builds one per-triangle shading table (geometry + full
 material row) per sample; shading then needs one row gather per bounce.
 Forward only: ``gather_rows``'s segment-sum backward comes with the
 training slice.
+
+On a two-level instanced scene the triangle data is in object space:
+the table carries each triangle's instance id as its last column, the
+ray moves into the instance's space by ``inst_inv`` (t is shared
+between the two spaces, since the direction is not renormalised), and
+normals come back to world space by the inverse transpose.
 """
 from __future__ import annotations
 
@@ -15,10 +21,7 @@ from cadrays_tpu_torch.core.bsdf import Material
 
 def build_shade_table(geom, materials: Material):
     """(T, C) per-triangle shading rows: p0 e1 e2 | n0 n1 n2 | uv0 uv1 uv2
-    | material row."""
-    if geom.instanced:
-        raise NotImplementedError(
-            "instanced shading tables are not ported yet: ROADMAP item 13")
+    | material row | [instance id]."""
     tv = geom.tri_v.long()
     p0 = geom.vertices[tv[:, 0]]
     p1 = geom.vertices[tv[:, 1]]
@@ -40,6 +43,8 @@ def build_shade_table(geom, materials: Material):
         f(m.coat_ftype), m.coat_fparams,
         f(m.tex_id), f(m.ks_tex_id), m.uv_scale[:, None],
     ]
+    if geom.instanced:
+        cols.append(f(geom.tri_inst))
     return torch.cat(cols, dim=1)
 
 
@@ -89,7 +94,13 @@ def hit_attributes_packed(geom, table, origin, direction, tri):
     uv2 = rows[:, 22:24]
     mat = _unpack_material(rows)
 
-    o_l, d_l = origin, direction
+    if geom.instanced:
+        inv = geom.inst_inv[rows[:, -1].long()]  # (R, 3, 4)
+        lin = inv[..., :3]
+        o_l = (lin * origin[:, None, :]).sum(-1) + inv[..., 3]
+        d_l = (lin * direction[:, None, :]).sum(-1)
+    else:
+        o_l, d_l = origin, direction
     pvec = vm.cross(d_l, e2)
     det = vm.dot(e1, pvec)
     inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1.0)
@@ -104,9 +115,15 @@ def hit_attributes_packed(geom, table, origin, direction, tri):
 
     position = origin + direction * t[..., None]
 
-    n_geom = vm.normalize(vm.cross(e1, e2))
-    n_shade = vm.normalize(w[..., None] * n0 + u[..., None] * n1
-                           + v[..., None] * n2)
+    n_geom_l = vm.cross(e1, e2)
+    n_shade_l = w[..., None] * n0 + u[..., None] * n1 + v[..., None] * n2
+    if geom.instanced:
+        # n_world = n_obj @ M^-1 (row-vector inverse transpose)
+        n_geom = vm.normalize((n_geom_l[:, :, None] * lin).sum(1))
+        n_shade = vm.normalize((n_shade_l[:, :, None] * lin).sum(1))
+    else:
+        n_geom = vm.normalize(n_geom_l)
+        n_shade = vm.normalize(n_shade_l)
     n_shade = torch.where(vm.dot(n_shade, n_geom, keepdims=True) < 0.0,
                           -n_shade, n_shade)
     uv = w[..., None] * uv0 + u[..., None] * uv1 + v[..., None] * uv2

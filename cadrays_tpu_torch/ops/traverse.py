@@ -11,14 +11,21 @@ launch:
 - ``"wide"`` (the default): ``ops/wide.trace_wide`` (kernel K1), or
   ``"pallas"`` when ``fits_wide`` fails;
 - ``"pallas"``: ``ops/binary.trace_binary`` (kernel K2), for every
-  non-instanced scene (the card has no on-chip size limit to check);
-- ``"gather"``: ``trace_gather``, K2's walk in plain PyTorch;
-- ``"stream"`` (the reference's packet walk) is not ported yet.
+  non-instanced scene (the card has no on-chip size limit to check),
+  or ``"stream"`` on an instanced scene;
+- ``"gather"``: ``trace_gather``, K2's walk in plain PyTorch, with the
+  reference's instanced branch;
+- ``"stream"`` (the reference's packet walk) is not ported yet: it
+  raises.
+
+So an instanced two-level scene reaches K1 variant (b) under ``"wide"``
+and ``"bruteforce"`` (K3 refuses it, as the reference's does), and
+raises under ``"pallas"`` (K2 refuses it, and ``"stream"`` is not
+ported).
 
 Each kernel wrapper launches its CUDA kernel on a CUDA tensor and runs
 its plain PyTorch version on a CPU tensor. A failed build or launch
 raises: once a kernel is chosen, nothing gives way to another walker.
-Instanced geometry raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -54,10 +61,6 @@ def trace(geom, origin, direction, t_max, any_hit: bool = False):
     Returns dict: t (R,), tri (R,) int32 (-1 miss), u, v (R,). With
     any_hit, ``tri >= 0`` means occluded.
     """
-    if geom.instanced:
-        raise NotImplementedError(
-            "instanced traversal is not ported yet: ROADMAP queue A, "
-            "item 13")
     backend = _BACKEND
     if backend == "bruteforce":
         if fits_bruteforce(geom):
@@ -70,7 +73,10 @@ def trace(geom, origin, direction, t_max, any_hit: bool = False):
                               any_hit=any_hit)
         backend = "pallas"
     if backend == "pallas":
-        return trace_binary(geom, origin, direction, t_max, any_hit=any_hit)
+        if not geom.instanced:
+            return trace_binary(geom, origin, direction, t_max,
+                                any_hit=any_hit)
+        backend = "stream"
     if backend == "stream":
         raise NotImplementedError(
             "the packet (stream) traversal is not ported yet: ROADMAP "
@@ -103,7 +109,8 @@ def occluded(geom, origin, direction, t_max):
 
 
 def _coherence_key(geom, origin, direction):
-    """Sort key: 3-bit direction octant | 12-bit origin Morton cell."""
+    """Sort key: 3-bit direction octant | 12-bit origin Morton cell, in
+    the box of node 0 (the TLAS root on an instanced scene)."""
     root_lo = geom.nodes_packed[0, 0:3]
     root_hi = geom.nodes_packed[0, 3:6]
     extent = torch.clamp(root_hi - root_lo, min=1e-6)
@@ -128,5 +135,7 @@ def _interleave4(x):
 def trace_gather(geom, origin, direction, t_max, any_hit: bool = False):
     """Per-ray walk of the binary threaded tree in plain PyTorch, on any
     device (the reference's ``"gather"`` backend, traverse.py:199-278).
-    It is the walk that K2 runs, so it is K2's plain version."""
+    It is the walk that K2 runs, so it is K2's plain version; on an
+    instanced scene it walks the fused two-level tree, moving each ray
+    into the space of the node it visits (traverse.py:233-240)."""
     return trace_binary_ref(geom, origin, direction, t_max, any_hit=any_hit)

@@ -1,17 +1,28 @@
 """BVH8 wide-tree traversal: the CUDA kernel K1 and its plain version.
 
-Counterpart of cadrays_tpu/ops/pallas_wide.py (variant a: non-instanced,
-tables resident). ``trace_wide`` is the kernel's wrapper: a CUDA tensor
-launches ``kernels/wide_trace.cu``; a CPU tensor runs
+Counterpart of cadrays_tpu/ops/pallas_wide.py, variants (a)
+non-instanced and (b) instanced (two-level TLAS/BLAS), with the tables
+resident in device memory. ``trace_wide`` is the kernel's wrapper: a
+CUDA tensor launches ``kernels/wide_trace.cu``; a CPU tensor runs
 ``trace_wide_ref``, the same walk written as vectorised PyTorch. There
 is no other branch and no fallback: a scene whose wide tree is missing
-or too deep for the kernel's stack raises ``ValueError``.
+or too deep for the kernel's stack raises ``ValueError``, and an
+instanced scene whose compact triangle table needs the streamed variant
+(c) raises ``NotImplementedError``.
 
 Both walk each ray on its own: pop an entry; a wide node slab-tests its
-8 children and pushes the hit ones far-to-near by the ray's direction
-octant, each with its entry distance; a merged leaf runs Moller-Trumbore
-on its triangles. ``trace_wide_ref`` keeps the kernel's operation order,
-so on the card the two agree bit for bit.
+8 children and pushes the hit ones far-to-near by the octant of the
+ray's world direction, each with its entry distance; a merged leaf runs
+Moller-Trumbore on its triangles. On an instanced scene each entry also
+carries an instance id (-1 at the root; a child takes ``winst`` where
+that is >= 0), every pop moves the ray into that instance's space by
+the 3x4 row ``inst_inv[inst]`` (an identity row for -1; the direction is
+not renormalised, so t stays in world units), leaves index the compact
+shared-BLAS table ``wtris_packed``, and a hit adds ``wdelta[inst]``.
+The child order uses the world octant in both variants (the reference
+takes its block's summed world direction); it changes only which of two
+triangles at equal t wins. ``trace_wide_ref`` keeps the kernel's
+operation order, so on the card the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import ctypes
 import torch
 
 from cadrays_tpu_torch.ops.intersect import safe_inv_dir, tri_intersect_packed
+from cadrays_tpu_torch.scene.flatten import _HBM_TRIS_THRESHOLD
 
 STACK_CAP = 192
 WIDTH = 8
@@ -27,6 +39,30 @@ _COUNT_SHIFT = 24
 _LEAF_MASK = (1 << _COUNT_SHIFT) - 1
 _EMPTY = 0x7FFFFFFF
 _INF = 3e30
+_IDENTITY = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+
+def _eff_tris(geom):
+    """The kernel's triangle table: the compact shared-BLAS table when
+    one was built (instanced scenes), else the fused table."""
+    return (geom.wtris_packed if geom.wtris_packed.shape[0] > 1
+            else geom.tris_packed)
+
+
+def _instance_tables(geom):
+    """(n_inst + 1, 12) world-to-object rows and (n_inst + 1,) hit-id
+    offsets, each with the slot of instance -1 appended last (identity,
+    0), as the reference's trace_wide appends them."""
+    n_inst = geom.inst_inv.shape[0]
+    dev = geom.inst_inv.device
+    instinv = torch.cat([
+        geom.inst_inv.reshape(n_inst, 12),
+        torch.tensor([_IDENTITY], dtype=torch.float32, device=dev)])
+    wdelta = (geom.wdelta if geom.wdelta.shape[0] == n_inst
+              else torch.zeros(n_inst, dtype=torch.int32, device=dev))
+    wdelta = torch.cat([wdelta, torch.zeros(1, dtype=torch.int32,
+                                            device=dev)])
+    return instinv.contiguous(), wdelta.contiguous()
 
 
 def _stack_fits(geom) -> bool:
@@ -47,10 +83,11 @@ def fits_wide(geom) -> bool:
 
 
 def _check_geometry(geom) -> None:
-    if geom.instanced:
+    if geom.instanced and _eff_tris(geom).shape[0] > _HBM_TRIS_THRESHOLD:
         raise NotImplementedError(
-            "instanced wide traversal (K1 variant b) is not ported yet: "
-            "ROADMAP queue B, item 13")
+            f"trace_wide: {_eff_tris(geom).shape[0]} compact triangle rows "
+            f"exceed {_HBM_TRIS_THRESHOLD}; the streamed-triangle variant "
+            "(K1 variant c) is not ported yet: ROADMAP item 14")
     if not fits_wide(geom):
         raise ValueError(
             "trace_wide: the scene has no BVH8 tree or it is deeper than "
@@ -86,10 +123,18 @@ def _launch(geom, origin, direction, t_max, any_hit):
         raise ValueError("trace_wide: origin and direction must be (R, 3)")
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
     t_max = t_max.expand(R).contiguous()
-    tris = geom.tris_packed
+    tris = _eff_tris(geom)
     args = [origin, direction, t_max, geom.wboxes, geom.wmeta, geom.worder,
             tris]
     want = [torch.float32] * 4 + [torch.int32, torch.int32, torch.float32]
+    n_inst = 0
+    if geom.instanced:
+        instinv, wdelta = _instance_tables(geom)
+        n_inst = instinv.shape[0] - 1
+        args += [geom.winst, instinv, wdelta]
+        want += [torch.int32, torch.float32, torch.int32]
+        if geom.winst.shape != geom.wmeta.shape:
+            raise ValueError("trace_wide: winst must have wmeta's shape")
     for a, dt in zip(args, want):
         if a.device != dev or a.dtype != dt or not a.is_contiguous():
             raise ValueError(
@@ -98,6 +143,8 @@ def _launch(geom, origin, direction, t_max, any_hit):
                 f"(contiguous={a.is_contiguous()})")
     if tris.shape[1] != 12 or geom.wboxes.shape[1] != 6 * WIDTH:
         raise ValueError("trace_wide: unexpected table widths")
+    if not geom.instanced:
+        args += [None] * 3  # variant (a) reads no instance tables
 
     out_t = torch.empty(R, dtype=torch.float32, device=dev)
     out_tri = torch.empty(R, dtype=torch.int32, device=dev)
@@ -108,8 +155,10 @@ def _launch(geom, origin, direction, t_max, any_hit):
     fn = load("wide_trace")[0].crt_wide_trace
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
-    err = fn(*[ptr(a) for a in args], ctypes.c_int(R),
+    err = fn(*[None if a is None else ptr(a) for a in args],
+             ctypes.c_int(n_inst), ctypes.c_int(R),
              ctypes.c_int(1 if any_hit else 0),
+             ctypes.c_int(1 if geom.instanced else 0),
              ptr(out_t), ptr(out_tri), ptr(out_u), ptr(out_v),
              ctypes.c_void_p(stream))
     if err != 0:
@@ -122,10 +171,13 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
                    stats: dict | None = None):
     """Plain PyTorch version of the kernel (same tables, same per-ray
     rules, same operation order): every ray keeps an (R, STACK_CAP)
-    stack row, and each iteration pops one entry per non-empty stack.
+    stack row (and, on an instanced scene, an instance-id row), and each
+    iteration pops one entry per non-empty stack.
 
-    stats: optional dict; accumulates "pops", "box_tests" and
-    "tri_tests" (the work these rays need), for bounds on the card.
+    stats: optional dict; accumulates "pops" (entries past the t cull,
+    each of which moves its ray into the entry's space on an instanced
+    scene), "box_tests" and "tri_tests" (the work these rays need), for
+    bounds on the card.
     """
     _check_geometry(geom)
     dev = origin.device
@@ -134,12 +186,12 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
     wboxes = geom.wboxes.reshape(-1, WIDTH, 6)
     wmeta = geom.wmeta
     worder = geom.worder
-    tris = geom.tris_packed
+    tris = _eff_tris(geom)
     K = int(geom.wide_leaf)
+    instanced = geom.instanced
 
-    ox, oy, oz = origin[:, 0], origin[:, 1], origin[:, 2]
     dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
-    ix, iy, iz = safe_inv_dir(direction).unbind(1)
+    inv_dir = safe_inv_dir(direction)
     octant = ((dx >= 0).long() | ((dy >= 0).long() << 1)
               | ((dz >= 0).long() << 2))
 
@@ -152,6 +204,11 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
     stack = torch.zeros((R, STACK_CAP + 1), dtype=torch.int32, device=dev)
     tstk = torch.zeros((R, STACK_CAP + 1), dtype=torch.float32, device=dev)
     stack[:, 0] = -2
+    if instanced:
+        instinv, wdelta = _instance_tables(geom)
+        n_inst = instinv.shape[0] - 1
+        istk = torch.full((R, STACK_CAP + 1), -1, dtype=torch.int32,
+                          device=dev)
     sp = (tm > 0.0).long()  # dead lanes (t_max <= 0) start empty
     kk = torch.arange(K, device=dev)
     slots = torch.arange(WIDTH, device=dev)
@@ -165,9 +222,31 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
         top = sp[act]
         e = stack[act, top]
         worth = tstk[act, top] <= t[act]
-        act, e = act[worth], e[worth]
+        act, e, top = act[worth], e[worth], top[worth]
         if stats is not None:
             n_pops += int(act.numel())
+
+        # the popped rays in their entries' spaces
+        o, d = origin[act], direction[act]
+        if instanced:
+            inst = istk[act, top]
+            slot = torch.where(inst < 0, n_inst, inst).long()
+            m = instinv[slot]  # (n, 12) row-major 3x4
+            o = torch.stack([
+                m[:, 0] * o[:, 0] + m[:, 1] * o[:, 1] + m[:, 2] * o[:, 2]
+                + m[:, 3],
+                m[:, 4] * o[:, 0] + m[:, 5] * o[:, 1] + m[:, 6] * o[:, 2]
+                + m[:, 7],
+                m[:, 8] * o[:, 0] + m[:, 9] * o[:, 1] + m[:, 10] * o[:, 2]
+                + m[:, 11]], dim=1)
+            d = torch.stack([
+                m[:, 0] * d[:, 0] + m[:, 1] * d[:, 1] + m[:, 2] * d[:, 2],
+                m[:, 4] * d[:, 0] + m[:, 5] * d[:, 1] + m[:, 6] * d[:, 2],
+                m[:, 8] * d[:, 0] + m[:, 9] * d[:, 1] + m[:, 10] * d[:, 2]],
+                dim=1)
+            inv = safe_inv_dir(d)
+        else:
+            inv = inv_dir[act]
 
         leaf = e >= 0
         la, le = act[leaf], e[leaf]
@@ -179,30 +258,36 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
             live_k = kk[None, :] < count[:, None]
             tid = torch.where(live_k, first[:, None] + kk[None, :], 0)
             tt, uu, vv, hit = tri_intersect_packed(
-                origin[la, None], direction[la, None], tris[tid])  # (n, K)
+                o[leaf, None], d[leaf, None], tris[tid])  # (n, K)
             hit = hit & live_k
             tt = torch.where(hit, tt, _INF)
             bt = tt.amin(dim=1)
             # lowest k among the minima: the kernel's strict-< scan order
             bk = torch.where(tt == bt[:, None], kk[None, :], K).amin(dim=1)
             bk_c = bk.clamp(max=K - 1)[:, None]
+            hit_id = first + bk
+            if instanced:
+                # compact shared-BLAS id -> fused per-instance id
+                hit_id = hit_id + wdelta[slot[leaf]]
             better = bt < t[la]
             lb = la[better]
             t[lb] = bt[better]
-            tri[lb] = (first + bk)[better].to(torch.int32)
+            tri[lb] = hit_id[better].to(torch.int32)
             u[lb] = uu.gather(1, bk_c)[:, 0][better]
             v[lb] = vv.gather(1, bk_c)[:, 0][better]
             if any_hit:
                 sp[lb] = 0
 
-        na, ne = act[~leaf], e[~leaf]
+        node = ~leaf
+        na, ne = act[node], e[node]
         if na.numel():
             if stats is not None:
                 n_box += WIDTH * int(na.numel())
             w = (-ne - 2).long()
             b = wboxes[w]  # (n, 8, 6)
-            nox, noy, noz = ox[na, None], oy[na, None], oz[na, None]
-            nix, niy, niz = ix[na, None], iy[na, None], iz[na, None]
+            no, ni = o[node], inv[node]
+            nox, noy, noz = no[:, 0, None], no[:, 1, None], no[:, 2, None]
+            nix, niy, niz = ni[:, 0, None], ni[:, 1, None], ni[:, 2, None]
             tx0 = (b[..., 0] - nox) * nix
             ty0 = (b[..., 1] - noy) * niy
             tz0 = (b[..., 2] - noz) * niz
@@ -229,6 +314,10 @@ def trace_wide_ref(geom, origin, direction, t_max, any_hit: bool = False,
             rows = na[:, None].expand(-1, WIDTH)
             stack[rows, pos] = meta
             tstk[rows, pos] = t_near
+            if instanced:
+                # a bridge child switches to its instance; others inherit
+                wi = geom.winst[w]
+                istk[rows, pos] = torch.where(wi >= 0, wi, inst[node, None])
             sp[na] += push.sum(-1)
 
     if stats is not None:

@@ -2,9 +2,11 @@
 
 Every table is built in numpy on the host exactly as the reference
 builds it (same BVH builder, same wide collapse, same packing), then
-moved to the device once. Non-instanced scenes only; the environment
-map, emissive and texture tables are the placeholders the bounce body
-reads when those features are off.
+moved to the device once. ``flatten_parts`` bakes world-space meshes
+into one BVH; two-level instanced scenes are built by
+scene/instances.py into the same dataclasses. The environment map,
+emissive and texture tables are the placeholders the bounce body reads
+when those features are off.
 
 ``scene_data_from_numpy`` / ``render_params_from_dict`` rebuild the
 port's dataclasses from plain numpy arrays keyed by field path
@@ -27,6 +29,10 @@ from cadrays_tpu_torch.geometry.mesh import TriangleMesh
 from cadrays_tpu_torch.geometry.wide_bvh import build_wide_bvh
 
 WIDE_LEAF = 64  # the reference's leaf size for every scene
+# wide-kernel triangle tables with more rows than this take the
+# reference's streamed-triangle kernel variant (c) (its
+# scene/flatten.py:437), which is not ported
+_HBM_TRIS_THRESHOLD = 200_000
 
 
 def _f32(*shape, fill=0.0):
@@ -60,7 +66,8 @@ class GeometryData(_TensorTree):
         bitcast(leafbits)]; tris_packed (T+128, 12) f32: [p0 | e1 | e2 |
         bitcast(mat_id) | pad | pad]; wboxes (Nw, 48) f32, wmeta/worder
         (Nw, 8) i32: the wide tree (geometry/wide_bvh.py).
-    Instancing fields keep the reference's identity placeholders.
+    Instancing fields (scene/instances.py) keep the reference's
+    identity placeholders on a baked scene.
     """
 
     vertices: torch.Tensor

@@ -1,7 +1,8 @@
 """User-facing Scene: node tree + lights, flattened to device SceneData.
 
-Non-instanced only: ``flatten`` bakes transforms into world-space
-vertices and builds one BVH, as the reference's default does.
+``flatten`` bakes transforms into world-space vertices and builds one
+BVH, as the reference's default does; ``flatten(instancing=True)``
+builds a TLAS over per-mesh BLASes instead (scene/instances.py).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from cadrays_tpu_torch.core.lights import (
 from cadrays_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from cadrays_tpu_torch.geometry.mesh import TriangleMesh
 from cadrays_tpu_torch.scene.flatten import SceneData, flatten_parts
+from cadrays_tpu_torch.scene.instances import build_instanced
 from cadrays_tpu_torch.scene.model import DataModel, DataNode, NodeType
 
 
@@ -67,25 +69,36 @@ class Scene:
                 instancing: bool = False,
                 device=DEFAULT_DEVICE) -> SceneData:
         """Device snapshot of the visible scene (cached on the host, moved
-        to ``device`` on return)."""
+        to ``device`` on return).
+
+        instancing=False bakes transforms into world-space vertices and
+        builds one BVH; instancing=True builds a TLAS over per-mesh BLASes
+        (scene/instances.py). As in the reference, a cached snapshot is
+        returned while the scene is unchanged, whatever ``instancing``
+        asks: flatten a fresh Scene to get the other layout.
+        """
         dev = resolve_device(device)
-        if instancing:
-            raise NotImplementedError(
-                "instanced flattening (two-level TLAS/BLAS) is not ported "
-                "yet: ROADMAP item 13")
         if self._cache is None or self._dirty:
             leaves = self.model.leaves(visible_only=True)
             if not leaves:
                 raise ValueError("scene has no visible geometry")
             lights = (concat_lights(self._lights) if self._lights
                       else empty_lights())
-            meshes, mats, mat_ids = [], [], []
-            for i, node in enumerate(leaves):
-                meshes.append(node.mesh.transformed(node.world_transform()))
-                mats.append(node.material)
-                mat_ids.append(i)
-            data = flatten_parts(meshes, mats, mat_ids, lights=lights,
-                                 device="cpu")
+            if instancing:
+                data = build_instanced(
+                    [n.mesh for n in leaves],
+                    [n.world_transform() for n in leaves],
+                    [n.material for n in leaves],
+                    list(range(len(leaves))),
+                    lights=lights, device="cpu")
+            else:
+                meshes, mats, mat_ids = [], [], []
+                for i, node in enumerate(leaves):
+                    meshes.append(node.mesh.transformed(node.world_transform()))
+                    mats.append(node.material)
+                    mat_ids.append(i)
+                data = flatten_parts(meshes, mats, mat_ids, lights=lights,
+                                     device="cpu")
             self._cache = data.replace(version=self._version)
             self._dirty = False
         return self._update_headlights(self._cache, camera).to(dev)

@@ -1,9 +1,13 @@
-"""Canonical scenes: the Cornell box of the reference's CornellBox fixture.
+"""Canonical scenes.
 
+``cornell_box``: the Cornell box of the reference's CornellBox fixture.
 Unit open box (interior [0,1]^3, +Y side open toward the camera, z up),
 coloured side walls, positional sphere light at (0.5, 0.5, 0.85) with
 radius 0.06 and intensity 25; the full variant adds the glass sphere,
 glossy and glass boxes and the mirror ball.
+
+``torus_grid``: the reference's CAD-scale instanced assembly
+(bench/cad_scale.py:53-79), a grid of one shared torus mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from cadrays_tpu_torch.core.fresnel import (
 )
 from cadrays_tpu_torch.core.lights import positional_light
 from cadrays_tpu_torch.geometry import primitives
+from cadrays_tpu_torch.scene.flatten import SceneData
+from cadrays_tpu_torch.scene.instances import build_instanced
 from cadrays_tpu_torch.scene.scene import Scene
 
 
@@ -103,3 +109,42 @@ def cornell_camera(aperture: float = 0.0) -> Camera:
         aperture=aperture,
         focal_dist=2.1,
     )
+
+
+def torus_grid(grid: int = 10, segments: int = 72, rings: int = 36,
+               lit: bool = True, device="cuda") -> tuple[SceneData, Camera]:
+    """Instanced assembly of grid x grid copies of one torus (major 1,
+    minor 0.35), each turned about z then x by one random angle and
+    lifted by up to 1.5, on a 2.6 pitch: the reference's CAD-scale scene
+    (bench/cad_scale.py:53-79, seed 7; at grid 10, 72 x 36: 100
+    instances, 518,400 triangles) with its camera. All instances share
+    one material, so the wide tree holds ONE torus BLAS.
+
+    lit=True adds a positional light of intensity 900 above the grid,
+    placed as bench/cad_distinct.py:145-146 places its light, with
+    extent grid * 2.6 (at grid 10: (13, -7.8, 31.2)); lit=False has no
+    light, as the reference's benchmark render has none.
+    """
+    mesh = primitives.torus(1.0, 0.35, segments, rings)
+    meshes, tfs = [], []
+    rng = np.random.default_rng(7)
+    for i in range(grid):
+        for j in range(grid):
+            m = np.eye(4, dtype=np.float32)
+            ang = rng.uniform(0, np.pi)
+            c, s = np.cos(ang), np.sin(ang)
+            m[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]],
+                                 np.float32) @ np.array(
+                [[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+            m[:3, 3] = (i * 2.6, j * 2.6, rng.uniform(0, 1.5))
+            meshes.append(mesh)
+            tfs.append(m)
+    side = grid * 2.6
+    lights = (positional_light(position=(side / 2, -side * 0.3, side * 1.2),
+                               intensity=900.0) if lit else None)
+    data = build_instanced(meshes, tfs, [material(kd=(0.8, 0.8, 0.8))],
+                           [0] * len(meshes), lights=lights, device=device)
+    cam = Camera.look_at(eye=(side / 2, -side * 0.8, side * 0.55),
+                         at=(side / 2, side / 2, 0.5), up=(0, 0, 1),
+                         fovy_deg=45.0)
+    return data, cam

@@ -4,24 +4,29 @@
 
 Needs one CUDA card; exits non-zero, printing no result, without one.
 It builds the three hand-written kernels from this checkout in parallel
-(K1 wide_trace, K2 binary_trace, K3 bruteforce), holds each against its
-plain PyTorch version on the card, and drives the port's main path (the
-persistent-wavefront forward render of the full Cornell box, 262,144
-lanes, spp 32, depth 5, 96 steps, then a full 1024x1024 frame through
-Renderer.render) once under each traversal backend that selects a
-kernel: "wide" (K1, the default), "pallas" (K2) and "bruteforce" (K3).
-Each backend's render must launch its own kernel 192 times; the K2
-render must match the "wide" render, and K3's hits must match K1's up
-to ties and to lanes within rounding of a triangle's edge or the ray's
-end (K3 rounds otherwise than K1, as the reference's brute-force walk
-does against its BVH walks). Each kernel is
-held against its plain version again on every launch of a short
-render_persistent and of a 1024x1024 Renderer.render, on the rays the
-main path hands it;
-the card's render is checked against the CPU's under each backend; and
-each kernel is timed against its bound on the main path's sorted bounce
-rays. Each phase prints one JSON line; then the card's name and power
-limit, the kernels line, and last the result line.
+(K1 wide_trace, in its variants (a) and (b) instanced, K2 binary_trace,
+K3 bruteforce), holds each against its plain PyTorch version on the
+card, and drives the port's main paths:
+- the persistent-wavefront forward render of the full Cornell box
+  (262,144 lanes, spp 32, depth 5, 96 steps, then a full 1024x1024
+  frame through Renderer.render) once under each traversal backend that
+  selects a kernel: "wide" (K1 (a), the default), "pallas" (K2) and
+  "bruteforce" (K3). Each backend's render must launch its own kernel
+  192 times; the K2 render must match the "wide" render, and K3's hits
+  must match K1's up to ties and to lanes within rounding of a
+  triangle's edge or the ray's end (K3 rounds otherwise than K1, as the
+  reference's brute-force walk does against its BVH walks);
+- the instanced CAD assembly of the reference's bench/cad_scale.py (100
+  instances of one torus, 518,400 triangles) rendered at 1024x1024 in
+  four chunks of 262,144 lanes, depth 5, spp 8, 26 steps, lit (208
+  launches of K1 (b)) and unlit as the reference renders it (104).
+Each kernel is held against its plain version again on every launch of
+a short render on the rays the main path hands it; the card's render
+is checked against the CPU's; the instanced full Cornell box is held
+against the baked one; and each kernel is timed against its bound on a
+main path's sorted first-bounce rays. Each phase prints one JSON line;
+then the card's name and power limit, the kernels line, and last the
+result line.
 """
 from __future__ import annotations
 
@@ -50,12 +55,450 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def time_ms(fn, reps):
+    """Median of `reps` CUDA-event timings of fn() after 3 warm-ups."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def nvidia_smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
         f"nvidia-smi failed: {r.stderr.strip()}"
+
+
+def mt64(g, o, d, tri):
+    """Float64 Moller-Trumbore of each ray against its triangle: the
+    signed distance to the triangle's nearest edge (min of u, v and
+    1 - u - v), t, and the cosine of incidence, which scales how far
+    fp32 rounding can move a ray across an edge or along itself."""
+    import torch
+
+    rows = g.tris_packed[tri.long()].double()
+    o, d = o.double(), d.double()
+    p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    pv = torch.linalg.cross(d, e2)
+    det = (e1 * pv).sum(-1)
+    tv = o - p0
+    qv = torch.linalg.cross(tv, e1)
+    u = (tv * pv).sum(-1) / det
+    v = (d * qv).sum(-1) / det
+    t = (e2 * qv).sum(-1) / det
+    n = torch.linalg.cross(e1, e2)
+    cos = (d * n).sum(-1).abs() / (n.norm(dim=-1) * d.norm(dim=-1))
+    return torch.stack([u, v, 1 - u - v]).amin(0), t, cos
+
+
+# a lane within this much of a decision boundary, in mt64's scaled
+# units (about 8 fp32 ulp at the box's unit scale), may go either way
+ROUNDING = 2.0 ** -20
+
+
+def k3_vs_k1(g, o, d, tm, any_hit, got, t_rtol=1e-4, t_atol=1e-8,
+             tie_rtol=1e-6):
+    """K3's hits against K1's plain version on the same rays, under
+    the reference's contract between its bruteforce and gather walks
+    (tests/test_geometry.py:276-284): equal hit masks, t within
+    rtol 1e-4, tri equal on more than 99% of hit lanes. (t_rtol, t_atol
+    and tie_rtol hold another walker or another build of the same scene
+    to another contract.) The two
+    walkers round differently, and so do the reference's:
+    - a lane where only one of them hits must lie within ROUNDING of
+      a decision boundary of the triangle it hit (an edge, or t_max);
+    - a lane where they hit different triangles must be a tie: t
+      equal within rtol 1e-6 (a few ulp), and the float64 hit point
+      on both triangles, within ROUNDING. Ties are counted as
+      coplanar faces of opposite orientation (the full box's glass
+      bottom on the glossy top), coplanar of the same orientation,
+      and crossing (two faces meeting at an edge)."""
+    import torch
+
+    from cadrays_tpu_torch.ops import wide
+
+    ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
+    tm = tm.expand(o.shape[0])
+    k3_hit = got["tri"] >= 0
+    hit = ref["tri"] >= 0
+    mdiff = k3_hit != hit
+    out = {"mask_differs": int(mdiff.sum()), "max_boundary_dist": 0.0}
+    if out["mask_differs"]:
+        inside, t, cos = mt64(g, o[mdiff], d[mdiff], torch.where(
+            k3_hit, got["tri"], ref["tri"])[mdiff])
+        tmd = tm[mdiff].double()
+        dist = torch.minimum(inside.abs(), (t - tmd).abs() / tmd) * cos
+        out["max_boundary_dist"] = float(dist.max())
+        assert bool((dist <= ROUNDING).all()), (any_hit, out)
+    if any_hit:
+        return out
+    hit = hit & k3_hit
+    dt = (got["t"][hit] - ref["t"][hit]).abs()
+    out["t_max_abs_diff"] = float(dt.max()) if dt.numel() else 0.0
+    assert bool((dt <= t_atol + t_rtol * ref["t"][hit].abs()).all()), out
+    diff = hit & (got["tri"] != ref["tri"])
+    n_diff = int(diff.sum())
+    assert n_diff <= 0.01 * int(hit.sum()), (n_diff, out)
+    assert torch.allclose(got["t"][diff], ref["t"][diff], rtol=tie_rtol,
+                          atol=0.0), ("the walkers differ off a tie", out)
+    normals = []
+    for tri in (got["tri"][diff], ref["tri"][diff]):
+        inside, _, cos = mt64(g, o[diff], d[diff], tri)
+        assert bool((inside * cos >= -ROUNDING).all()), \
+            "a tie off one of its triangles"
+        rows = g.tris_packed[tri.long()]
+        n = torch.linalg.cross(rows[:, 3:6], rows[:, 6:9])
+        normals.append(n / n.norm(dim=-1, keepdim=True))
+    cos = (normals[0] * normals[1]).sum(-1)
+    out.update({"tri_differs": n_diff,
+                "coplanar_opposite": int((cos < -0.999).sum()),
+                "coplanar_same": int((cos > 0.999).sum()),
+                "crossing": int((cos.abs() <= 0.999).sum())})
+    return out
+
+
+# per pop of an instanced walk (kernels/wide_trace.cu, variant b): the
+# 3x4 transform of origin and direction (18 multiplies, 15 adds) and the
+# 3 reciprocals of the safe inverse direction
+OPS_PER_POP_TRANSFORM = 36
+
+
+def _bit_equal(got, ref, what):
+    """K1 (b) against its plain version: every output equal bit for bit
+    on every lane, no tie allowed; returns the hit count."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k in ("tri", "t", "u", "v"):
+        assert torch.equal(got[k], ref[k]), (what, k)
+    return int((ref["tri"] >= 0).sum())
+
+
+def _tri_map(inst_geom, baked_geom):
+    """Fused triangle id of an instanced build -> id of the same world
+    triangle in a baked build of the same scene (nearest world centroid;
+    the two builds order triangles differently)."""
+    import torch
+
+    def centroids(g, tf=None):
+        v = g.vertices[g.tri_v.long()].double().mean(1)  # (T, 3)
+        if tf is not None:
+            m = tf[g.tri_inst.long()].double()
+            v = (m[..., :3] * v[:, None, :]).sum(-1) + m[..., 3]
+        return v
+
+    ci = centroids(inst_geom, inst_geom.inst_tf)
+    cb = centroids(baked_geom)
+    dist = torch.cdist(ci, cb)
+    near, idx = dist.min(1)
+    assert float(near.max()) < 1e-5, float(near.max())
+    assert idx.unique().numel() == idx.numel()
+    return idx.to(torch.int32)
+
+
+def run_instanced(dev, reset_counts, read_counts, *, grid=10, segments=72, rings=36,
+                  width=1024, spp=8, n_steps=26, n_syn=65_536, cpu_size=32,
+                  cornell_lanes=262_144, cornell_spp=32, cornell_steps=96,
+                  reps=20):
+    """The instanced slice on the card: K1 variant (b) against its plain
+    version (synthetic rays, every launch of one chunk of the main
+    path), the reference's CAD-scale render (bench/cad_scale.py:160-200:
+    the 100-torus grid, four chunks of a 1024x1024 frame, depth 5, spp
+    8, 26 steps) lit and unlit, the card against the CPU, the instanced
+    full Cornell box against the baked one, and K1 (b)'s time against
+    its bound. reset_counts() zeroes every kernel wrapper's launch count
+    and read_counts() reads them by backend. Returns K1 (b)'s row of the
+    kernels line."""
+    import numpy as np
+    import torch
+
+    from cadrays_tpu_torch.integrator.params import RenderParams
+    from cadrays_tpu_torch.integrator.persistent import render_persistent
+    from cadrays_tpu_torch.integrator.renderer import render_persistent_image
+    from cadrays_tpu_torch.integrator.wavefront import build_wavefront
+    from cadrays_tpu_torch.ops import traverse, wide
+    from cadrays_tpu_torch.scene.scene import Scene
+    from cadrays_tpu_torch.core.bsdf import material
+    from cadrays_tpu_torch.core.camera import Camera
+    from cadrays_tpu_torch.core.lights import directional_light
+    from cadrays_tpu_torch.geometry import primitives
+    from cadrays_tpu_torch.testing.regression import compare
+    from cadrays_tpu_torch.testing.scenes import (cornell_box, cornell_camera,
+                                                  torus_grid)
+
+    traverse.set_backend("wide")
+    params = RenderParams(ray_depth=5)
+    t_build = time.perf_counter()
+    scenes = {lit: torus_grid(grid, segments, rings, lit=lit, device=dev)
+              for lit in (True, False)}
+    t_build = time.perf_counter() - t_build
+    data, cam = scenes[True]
+    geom = data.geometry
+    assert geom.instanced and wide.fits_wide(geom)
+    emit({"phase": "torus_grid", "grid": grid, "instances":
+          int(geom.inst_inv.shape[0]), "triangles": int(geom.tri_v.shape[0]),
+          "compact_rows": int(geom.wtris_packed.shape[0]),
+          "wide_nodes": int(geom.wmeta.shape[0]),
+          "wide_depth": int(geom.wide_depth),
+          "wide_leaf": int(geom.wide_leaf),
+          "binary_nodes": int(geom.nodes_packed.shape[0]),
+          "build_seconds_both": t_build})
+    rng = np.random.default_rng(4)
+    side = grid * 2.6
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # ---- K1 (b) against its plain version, synthetic rays --------------
+    n = n_syn
+    px_side = int(round(n ** 0.5))
+    pix = np.arange(n)
+    px = cuda((pix % px_side + rng.uniform(size=n)).astype(np.float32))
+    py = cuda((pix // px_side + rng.uniform(size=n)).astype(np.float32))
+    zeros = torch.zeros(n, device=dev)
+    cam_o, cam_d = cam.to(dev).generate_rays(px, py, zeros, zeros,
+                                             px_side, px_side)
+    b_o = rng.uniform([0, 0, -1], [side, side, 2], (n, 3)).astype(np.float32)
+    b_d = rng.normal(size=(n, 3)).astype(np.float32)
+    b_d /= np.linalg.norm(b_d, axis=-1, keepdims=True)
+    # a non-uniformly scaled instance (tests/test_instances.py:59), with
+    # every other hit lane capped at half its hit distance and every 7th
+    # lane dead
+    sq = Scene()
+    sq.clear_lights()
+    sq.add_light(directional_light(direction=(0, 0, -1), intensity=2.0))
+    sq.add_mesh("squashed", primitives.sphere(1.0, 24, 12),
+                material(kd=(0.7, 0.7, 0.7)),
+                np.diag([3.0, 1.0, 0.5, 1.0]).astype(np.float32))
+    sq_cam = Camera.look_at(eye=(0, 0, 6), at=(0, 0, 0), up=(0, 1, 0),
+                            fovy_deg=45.0)
+    sq_geom = sq.flatten(sq_cam, instancing=True, device=dev).geometry
+    s_o = rng.uniform([-4, -2, -1], [4, 2, 1], (n, 3)).astype(np.float32)
+    s_d = rng.normal(size=(n, 3)).astype(np.float32)
+    s_d /= np.linalg.norm(s_d, axis=-1, keepdims=True)
+    s_o, s_d = cuda(s_o), cuda(s_d)
+    full = wide.trace_wide_ref(sq_geom, s_o, s_d,
+                               torch.full((n,), 1e30, device=dev))
+    capped = (full["tri"] >= 0) & (torch.arange(n, device=dev) % 2 == 0)
+    s_tm = torch.where(capped, full["t"] * 0.5, 1e30)
+    s_tm[::7] = 0.0
+    inf = torch.full((n,), 1e30, device=dev)
+    cases = [("torus_camera", geom, cam_o.contiguous(), cam_d.contiguous(),
+              inf), ("torus_bounce", geom, cuda(b_o), cuda(b_d), inf),
+             ("squashed_capped", sq_geom, s_o, s_d, s_tm.contiguous())]
+    for name, g, o, d, tm in cases:
+        for any_hit in (False, True):
+            got = wide.trace_wide(g, o, d, tm, any_hit=any_hit)
+            ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
+            hits = _bit_equal(got, ref, (name, any_hit))
+            if name == "squashed_capped":
+                assert bool((got["tri"][::7] == -1).all())
+                assert not bool((got["tri"][capped] >= 0).any())
+            emit({"phase": "k1b_check", "case": name, "any_hit": any_hit,
+                  "rays": n, "hits": hits, "tie_lanes": 0,
+                  "max_abs_err": 0.0})
+
+    # ---- the reference's CAD-scale render, lit and unlit ---------------
+    R = width * width // 4
+    chunks = [torch.arange(c * R, (c + 1) * R, device=dev) for c in range(4)]
+    launches = {}
+    for lit in (True, False):
+        data_l, cam_l = scenes[lit]
+        render_persistent(data_l, cam_l, params, width, width, 1, 2,
+                          pixel_ids=chunks[1][:4096])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        done, imgs = 0, []
+        for pids in chunks:
+            img, cnt = render_persistent(data_l, cam_l, params, width, width,
+                                         spp, n_steps, pixel_ids=pids)
+            done += int(cnt.sum())
+            imgs.append(img / cnt[:, None].clamp(min=1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        per_step = 2 if lit else 1  # no light: no shadow trace
+        assert counts == {"wide": 4 * n_steps * per_step, "pallas": 0,
+                          "bruteforce": 0}, counts
+        launches[lit] = counts["wide"]
+        frame = torch.cat(imgs)
+        mean = float(frame.mean())
+        assert bool(torch.isfinite(frame).all())
+        if lit:
+            assert mean > 0.01, mean  # the light reaches the tori
+        emit({"phase": "torus_main_path", "lit": lit,
+              "call": "render_persistent x 4 chunks", "width": width,
+              "height": width, "lanes": R, "spp": spp, "n_steps": n_steps,
+              "depth": params.ray_depth, "seconds": dt,
+              "samples_per_s": done / dt,
+              "quota_completion": done / (4 * R * spp),
+              "k1b_launches": counts["wide"], "hdr_mean": mean})
+
+    # ---- K1 (b) on every launch of chunks 0 and 2 of the lit render ----
+    # chunk 0 (the frame's top rows) looks over the assembly at the sky,
+    # so its rays all miss; chunk 2 looks down at the tori
+    launch = wide._launch
+    for c in (0, 2):
+        seen = {}
+
+        def checked_launch(g, o, d, tm, any_hit, _seen=seen):
+            got = launch(g, o, d, tm, any_hit)
+            ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
+            s = _seen.setdefault(any_hit, {"launches": 0, "hits": 0})
+            s["launches"] += 1
+            s["hits"] += _bit_equal(got, ref, ("main path", c, any_hit))
+            return got
+
+        wide._launch = checked_launch
+        try:
+            render_persistent(data, cam, params, width, width, spp, n_steps,
+                              pixel_ids=chunks[c])
+        finally:
+            wide._launch = launch
+        assert sum(s["launches"] for s in seen.values()) == 2 * n_steps, seen
+        for any_hit, s in sorted(seen.items()):
+            emit({"phase": "k1b_main_path_check", "chunk": c, "lanes": R,
+                  "any_hit": any_hit, **s, "tie_lanes": 0,
+                  "max_abs_err": 0.0})
+
+    # ---- the card against the CPU, 32x32 torus grid --------------------
+    small = {}
+    for d_ in (dev.type, "cpu"):
+        sd, sc = torus_grid(grid, segments, rings, lit=True, device=d_)
+        small[d_] = render_persistent_image(sd, sc, params, cpu_size,
+                                            cpu_size, spp=4).cpu().numpy()
+    res = compare(small[dev.type], small["cpu"], pix_tol=0.02)
+    assert res["match"], res
+    emit({"phase": "card_vs_cpu_torus", "size": cpu_size, "spp": 4, **res})
+
+    # ---- instanced against baked: the full Cornell box ----------------
+    # two fresh scenes: a Scene returns its cached snapshot whatever
+    # `instancing` asks
+    ccam = cornell_camera()
+    baked = cornell_box(full=True).flatten(ccam, device=dev)
+    inst = cornell_box(full=True).flatten(ccam, instancing=True, device=dev)
+    assert inst.geometry.instanced and not baked.geometry.instanced
+    pids = torch.arange(cornell_lanes, device=dev)
+    cimg = {}
+    for name, sd in (("baked", baked), ("instanced", inst)):
+        reset_counts()
+        t0 = time.perf_counter()
+        img, cnt = render_persistent(sd, ccam, params, 1024, 1024,
+                                     cornell_spp, cornell_steps,
+                                     pixel_ids=pids)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        assert read_counts() == {"wide": 2 * cornell_steps, "pallas": 0,
+                                 "bruteforce": 0}
+        cimg[name] = (img / cnt[:, None].clamp(min=1)).reshape(
+            -1, 1024, 3).cpu().numpy()
+        emit({"phase": "cornell_instanced_vs_baked", "scene": name,
+              "lanes": cornell_lanes, "spp": cornell_spp,
+              "n_steps": cornell_steps, "seconds": dt,
+              "samples_per_s": int(cnt.sum()) / dt,
+              "quota_completion": int(cnt.sum()) / (cornell_lanes
+                                                    * cornell_spp)})
+    # the images may differ where the two builds break a coplanar tie
+    # apart (the glass box's bottom on the glossy box's top, met from
+    # inside the glass: ROADMAP C2); the compare result is printed, and
+    # every hit the two builds disagree on must be a tie or within
+    # rounding of an edge or t_max (k3_vs_k1's contract between two
+    # walkers that round differently), on the camera rays and the
+    # sorted rays of every later bounce of the baked path
+    res = compare(cimg["instanced"], cimg["baked"], pix_tol=0.02)
+    tmap = _tri_map(inst.geometry, baked.geometry)
+    state, bounce = build_wavefront(baked, ccam, params, 1024, 1024, 0, pids)
+    ray_sets = [("camera", state["origin"], state["direction"],
+                 torch.full((cornell_lanes,), 1e30, device=dev))]
+    with torch.no_grad():
+        for b in range(params.ray_depth - 1):
+            state, _ = bounce(state, b)
+            ray_sets.append((f"bounce_{b + 1}", state["origin"],
+                             state["direction"],
+                             torch.where(state["alive"], 1e30, 0.0)))
+    gap = {}
+    for rname, o, d, tm in ray_sets:
+        o, d, tm = o.contiguous(), d.contiguous(), tm.contiguous()
+        for any_hit in (False, True):
+            got = dict(wide.trace_wide(inst.geometry, o, d, tm,
+                                       any_hit=any_hit))
+            got["tri"] = torch.where(got["tri"] >= 0,
+                                     tmap[got["tri"].clamp(min=0).long()],
+                                     -1)
+            # t: the reference's contract between a baked and an
+            # instanced build (tests/test_instances.py:43-45); the
+            # builds round the geometry apart by an ulp of its
+            # coordinates, which shows on short bounce segments (t ~ 1e-4
+            # off a surface) and on ties (the two coplanar faces' t up to
+            # 4.0e-6 apart, where one walker on one build gives 1e-7)
+            gap[f"{rname}_{'any' if any_hit else 'closest'}"] = k3_vs_k1(
+                baked.geometry, o, d, tm, any_hit, got, t_rtol=2e-4,
+                t_atol=2e-4, tie_rtol=1e-5)
+    emit({"phase": "cornell_instanced_vs_baked", "compare": res,
+          "hit_differences": gap})
+
+    # ---- K1 (b) timing on the torus grid's sorted first-bounce rays ----
+    # pixel ids strided over the whole frame (cad_scale.py:113-117): a
+    # contiguous quarter would see mostly sky above the assembly
+    spids = torch.arange(R, device=dev) * 4
+    state, bounce = build_wavefront(data, cam, params, width, width, 0, spids)
+    with torch.no_grad():
+        state, _ = bounce(state, 0)
+    o = state["origin"].contiguous()
+    d = state["direction"].contiguous()
+    tm = torch.where(state["alive"], 1e30, 0.0)
+    live = int((tm > 0).sum())
+    instinv, wdelta = wide._instance_tables(geom)
+    tables = sum(t.numel() * t.element_size() for t in (
+        geom.wboxes, geom.wmeta, geom.worder, geom.winst,
+        geom.wtris_packed, instinv, wdelta))
+    ray_bytes = R * (4 + 4 * 4) + live * 6 * 4
+    timing = {}
+    for any_hit in (False, True):
+        stats = {}
+        got = wide.trace_wide(geom, o, d, tm, any_hit=any_hit)
+        hits = _bit_equal(got, wide.trace_wide_ref(geom, o, d, tm,
+                                                   any_hit=any_hit,
+                                                   stats=stats),
+                          ("timing rays", any_hit))
+        ms = time_ms(lambda: wide.trace_wide(geom, o, d, tm,
+                                             any_hit=any_hit), reps)
+        plain_ms = time_ms(lambda: wide.trace_wide_ref(
+            geom, o, d, tm, any_hit=any_hit), 3)
+        ops = (stats["box_tests"] * OPS_PER_BOX_TEST
+               + stats["tri_tests"] * OPS_PER_TRI_TEST
+               + stats["pops"] * OPS_PER_POP_TRANSFORM)
+        t_bytes = (ray_bytes + tables) / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS_PER_S * 1e3
+        timing[any_hit] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=ray_bytes + tables, ops=ops, **stats)
+        emit({"phase": "k1b_timing", "any_hit": any_hit, "rays": R,
+              "live_rays": live, "hits": hits, "tie_lanes": 0,
+              "max_abs_err": 0.0, **timing[any_hit], "library_ms": None,
+              "library_note": "no single PyTorch call traces a BVH"})
+    close, anyh = timing[False], timing[True]
+    return {"launches": launches[True], "max_abs_err": 0.0,
+            "ms": close["ms"], "plain_ms": close["plain_ms"],
+            "bound_ms": close["bound_ms"], "bound_by": close["bound_by"],
+            "library_ms": None, "any_hit_ms": anyh["ms"],
+            "any_hit_plain_ms": anyh["plain_ms"],
+            "any_hit_bound_ms": anyh["bound_ms"],
+            "unlit_launches": launches[False]}
 
 
 def main() -> int:
@@ -313,80 +756,6 @@ def main() -> int:
               f"{kn['k']}_launches": counts[backend], "hdr_mean": fmean})
     traverse.set_backend("wide")
 
-    def mt64(g, o, d, tri):
-        """Float64 Moller-Trumbore of each ray against its triangle: the
-        signed distance to the triangle's nearest edge (min of u, v and
-        1 - u - v), t, and the cosine of incidence, which scales how far
-        fp32 rounding can move a ray across an edge or along itself."""
-        rows = g.tris_packed[tri.long()].double()
-        o, d = o.double(), d.double()
-        p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
-        pv = torch.linalg.cross(d, e2)
-        det = (e1 * pv).sum(-1)
-        tv = o - p0
-        qv = torch.linalg.cross(tv, e1)
-        u = (tv * pv).sum(-1) / det
-        v = (d * qv).sum(-1) / det
-        t = (e2 * qv).sum(-1) / det
-        n = torch.linalg.cross(e1, e2)
-        cos = (d * n).sum(-1).abs() / (n.norm(dim=-1) * d.norm(dim=-1))
-        return torch.stack([u, v, 1 - u - v]).amin(0), t, cos
-
-    # a lane within this much of a decision boundary, in mt64's scaled
-    # units (about 8 fp32 ulp at the box's unit scale), may go either way
-    ROUNDING = 2.0 ** -20
-
-    def k3_vs_k1(g, o, d, tm, any_hit, got):
-        """K3's hits against K1's plain version on the same rays, under
-        the reference's contract between its bruteforce and gather walks
-        (tests/test_geometry.py:276-284): equal hit masks, t within
-        rtol 1e-4, tri equal on more than 99% of hit lanes. The two
-        walkers round differently, and so do the reference's:
-        - a lane where only one of them hits must lie within ROUNDING of
-          a decision boundary of the triangle it hit (an edge, or t_max);
-        - a lane where they hit different triangles must be a tie: t
-          equal within rtol 1e-6 (a few ulp), and the float64 hit point
-          on both triangles, within ROUNDING. Ties are counted as
-          coplanar faces of opposite orientation (the full box's glass
-          bottom on the glossy top), coplanar of the same orientation,
-          and crossing (two faces meeting at an edge)."""
-        ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
-        tm = tm.expand(o.shape[0])
-        k3_hit = got["tri"] >= 0
-        hit = ref["tri"] >= 0
-        mdiff = k3_hit != hit
-        out = {"mask_differs": int(mdiff.sum()), "max_boundary_dist": 0.0}
-        if out["mask_differs"]:
-            inside, t, cos = mt64(g, o[mdiff], d[mdiff], torch.where(
-                k3_hit, got["tri"], ref["tri"])[mdiff])
-            tmd = tm[mdiff].double()
-            dist = torch.minimum(inside.abs(), (t - tmd).abs() / tmd) * cos
-            out["max_boundary_dist"] = float(dist.max())
-            assert bool((dist <= ROUNDING).all()), (any_hit, out)
-        if any_hit:
-            return out
-        hit = hit & k3_hit
-        assert torch.allclose(got["t"][hit], ref["t"][hit], rtol=1e-4)
-        diff = hit & (got["tri"] != ref["tri"])
-        n_diff = int(diff.sum())
-        assert n_diff <= 0.01 * int(hit.sum()), n_diff
-        assert torch.allclose(got["t"][diff], ref["t"][diff], rtol=1e-6,
-                              atol=0.0), "K3 and K1 differ off a tie"
-        normals = []
-        for tri in (got["tri"][diff], ref["tri"][diff]):
-            inside, _, cos = mt64(g, o[diff], d[diff], tri)
-            assert bool((inside * cos >= -ROUNDING).all()), \
-                "a tie off one of its triangles"
-            rows = g.tris_packed[tri.long()]
-            n = torch.linalg.cross(rows[:, 3:6], rows[:, 6:9])
-            normals.append(n / n.norm(dim=-1, keepdim=True))
-        cos = (normals[0] * normals[1]).sum(-1)
-        out.update({"tri_differs": n_diff,
-                    "coplanar_opposite": int((cos < -0.999).sum()),
-                    "coplanar_same": int((cos > 0.999).sum()),
-                    "crossing": int((cos.abs() <= 0.999).sum())})
-        return out
-
     # ---- 4b. each kernel against its plain version on the main path's
     # own rays: every launch of a 4-step render_persistent at the main
     # path's 262,144 lanes and of a 1024x1024 spp-1 Renderer.render
@@ -452,20 +821,6 @@ def main() -> int:
     d = state["direction"].contiguous()
     tm = torch.where(state["alive"], 1e30, 0.0)
 
-    def time_ms(fn, reps):
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
@@ -513,7 +868,10 @@ def main() -> int:
                   "library_note": "no single PyTorch call computes a BVH "
                                   "traversal or a brute-force closest hit"})
 
-    # ---- 7. kernels ----------------------------------------------------
+    # ---- 7. the instanced slice: K1 variant (b) ------------------------
+    k1b = run_instanced(dev, reset_counts, read_counts)
+
+    # ---- 8. kernels ----------------------------------------------------
     print(smi, flush=True)
     rows = []
     for backend, kn in kern.items():
@@ -528,6 +886,13 @@ def main() -> int:
             "library_ms": None,
             "any_hit_ms": anyh["ms"], "any_hit_plain_ms": anyh["plain_ms"],
             "any_hit_bound_ms": anyh["bound_ms"], "check": "passed"})
+        if backend == "wide":
+            rows[-1]["name"] = "wide_trace (a)"
+            rows.append({
+                "name": "wide_trace (b) instanced", "route": "cuda",
+                "source": "cadrays_tpu_torch/kernels/wide_trace.cu",
+                "replaces": "cadrays_tpu/ops/pallas_wide.py:163",
+                **k1b, "check": "passed"})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -320,7 +320,14 @@ def test_fall_through_is_decided_by_the_geometry(cornell_geoms, backend):
 
 
 def test_stream_unknown_and_instanced_raise(cornell_geoms, backend):
+    """"stream" and unknown names raise. An instanced (two-level) scene
+    raises under "pallas" too, which falls through to "stream" (item
+    12), as the reference's K2 refuses it; under "wide" and
+    "bruteforce" it traces through K1 variant (b), and under "gather"
+    through the gather walk's instanced branch."""
     from cadrays_tpu_torch.ops.traverse import trace, trace_gather
+    from cadrays_tpu_torch.ops.wide import trace_wide_ref
+    from cadrays_tpu_torch.testing.scenes import cornell_box, cornell_camera
 
     _, pgeom = cornell_geoms
     o, d = (torch.from_numpy(a) for a in _rays(4, seed=5, lo=0, hi=1))
@@ -330,13 +337,24 @@ def test_stream_unknown_and_instanced_raise(cornell_geoms, backend):
         trace(pgeom, o, d, tm)
     with pytest.raises(ValueError, match="unknown traversal backend"):
         backend("cuda")
-    inst = pgeom.replace(instanced=True)
+    inst = cornell_box(full=False).flatten(
+        cornell_camera(), instancing=True, device="cpu").geometry
+    o, d = (torch.from_numpy(a) for a in _rays(64, seed=5, lo=0, hi=1))
+    tm = torch.full((64,), 1e30)
+    want = {"bruteforce": trace_wide_ref(inst, o, d, tm),
+            "wide": trace_wide_ref(inst, o, d, tm),
+            "gather": trace_gather(inst, o, d, tm)}
+    assert int((want["wide"]["tri"] >= 0).sum()) > 32
+    assert torch.equal(want["gather"]["tri"] >= 0, want["wide"]["tri"] >= 0)
     for name in ("bruteforce", "wide", "pallas", "gather"):
         backend(name)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            trace(inst, o, d, tm)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trace_gather(inst, o, d, tm)
+        if name == "pallas":
+            with pytest.raises(NotImplementedError, match="item 12"):
+                trace(inst, o, d, tm)
+            continue
+        got = trace(inst, o, d, tm)
+        for k in got:
+            assert torch.equal(got[k], want[name][k]), (name, k)
 
 
 def test_trace_sorted_skips_the_sort_under_bruteforce(cornell_geoms, backend,

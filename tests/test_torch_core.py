@@ -84,6 +84,43 @@ def _close(a, b, what):
                                atol=ATOL, err_msg=what)
 
 
+def _float64_copy(m):
+    from cadrays_tpu_torch.core.bsdf import Material
+
+    return Material(**{k: (v.double() if v.is_floating_point() else v)
+                       for k, v in vars(m).items()})
+
+
+def _hold_to_float64(ref, got, arb, what):
+    """The port against the reference where the reference is accurate,
+    and against a float64 arbiter where it is not.
+
+    Glossy conductor lobes of low roughness with large f are
+    ill-conditioned in fp32: there the frameworks' last-ulp differences
+    grow past rtol 1e-5, and the reference itself is up to ~5e-5 off
+    float64 (ROADMAP section C). An element is accurate where the
+    reference is within rtol 1e-5 / 2 (atol 1e-6) of the arbiter: two
+    results each within half the tolerance of the truth are within the
+    tolerance of each other. There the port is held to the reference at
+    rtol 1e-5, atol 1e-6. On the other elements, which must be at most
+    1% of them, the port must be no farther from the arbiter than twice
+    the reference is. Everywhere the reference must be within 1e-4
+    relative (atol 1e-6) of the arbiter: a wrong formula in the port
+    would fail that."""
+    ref = np.asarray(ref, np.float64)
+    got = got.numpy().astype(np.float64)
+    arb = arb.numpy()
+    ref_err = np.abs(ref - arb)
+    assert np.all(ref_err <= 1e-4 * np.abs(arb) + ATOL), \
+        (what, float((ref_err / np.maximum(np.abs(arb), 1e-30)).max()))
+    good = ref_err <= 0.5 * RTOL * np.abs(arb) + ATOL
+    np.testing.assert_allclose(got[good], ref[good], rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    bad = ~good
+    assert bad.sum() <= 0.01 * bad.size, (what, int(bad.sum()))
+    assert np.all(np.abs(got[bad] - arb[bad]) <= 2.0 * ref_err[bad]), what
+
+
 def test_eval_bsdf_allclose():
     from cadrays_tpu.core.bsdf import eval_bsdf as jeval
     from cadrays_tpu_torch.core.bsdf import eval_bsdf
@@ -97,8 +134,10 @@ def test_eval_bsdf_allclose():
     wi = _unit(rng, n)
     jf, jpdf = jeval(jm, jnp.asarray(wo), jnp.asarray(wi), jnp.asarray(nrm))
     f, pdf = eval_bsdf(pm, _t(wo), _t(wi), _t(nrm))
-    _close(jf, f, "f")
-    _close(jpdf, pdf, "pdf")
+    f64, pdf64 = eval_bsdf(_float64_copy(pm), *(_t(a).double()
+                                                for a in (wo, wi, nrm)))
+    _hold_to_float64(jf, f, f64, "f")
+    _hold_to_float64(jpdf, pdf, pdf64, "pdf")
 
 
 def test_sample_bsdf_allclose():

@@ -23,6 +23,7 @@ def test_import_pulls_in_no_jax_in_a_fresh_process():
             "cadrays_tpu_torch.ops.traverse, "
             "cadrays_tpu_torch.integrator.renderer, "
             "cadrays_tpu_torch.testing.scenes, "
+            "cadrays_tpu_torch.scene.instances, "
             "cadrays_tpu_torch.kernels.build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'cadrays_tpu'))\n"
