@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (C entry point, its argument types)
 KERNELS = {
-    "wide_trace": ("crt_wide_trace", [_P] * 10 + [_I] * 4 + [_P] * 5),
+    "wide_trace": ("crt_wide_trace", [_P] * 11 + [_I] * 5 + [_P] * 5),
     "binary_trace": ("crt_binary_trace", [_P] * 5 + [_I, _I] + [_P] * 5),
     "bruteforce": ("crt_bruteforce", [_P] * 4 + [_I, _I] + [_P] * 2),
 }

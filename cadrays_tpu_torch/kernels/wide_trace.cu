@@ -1,9 +1,10 @@
 // BVH8 closest-hit / any-hit traversal for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel cadrays_tpu/ops/pallas_wide.py:_make_kernel in
-// its variants (a) non-instanced and (b) instanced (two-level TLAS/BLAS),
-// with the triangle table resident in device memory. One source serves
-// both, as the template parameter INSTANCED. For every ray it computes
+// its variants (a) non-instanced, (b) instanced (two-level TLAS/BLAS),
+// (c) hbm_tris and (d) seeded stacks. One source serves all four: (b)
+// is the template parameter INSTANCED, (d) the optional `start` table,
+// and (c) is (a) or (b) itself (see below). For every ray it computes
 // what that kernel computes:
 //   * stack walk of the wide tree: entries are wide nodes (-widx - 2,
 //     root = -2) or merged leaves (first | count << 24);
@@ -31,6 +32,22 @@
 //   * leaves index the compact shared-BLAS table (wtris_packed), and a
 //     hit adds wdelta[inst] (0 in the identity slot) in int32, which
 //     gives the fused per-instance triangle id.
+// Variant (c), hbm_tris (pallas_wide.py:279-290, 480-554, 613): on the
+// TPU a triangle table above VMEM stays in HBM and each leaf's rows are
+// DMA'd into a two-slot buffer while the previous leaf is tested. This
+// card has no such split to manage: the kernel reads the (T, 12) table
+// from device memory through L1 and L2 at any row count, so (c) is (a)
+// or (b) over a large table. The deferred leaf changed only when a leaf
+// was tested, not the order of the tests, so the closest hit is the
+// same up to ties.
+// Variant (d), seeded stacks (pallas_wide.py:221-241, 622-626): with a
+// `start` table of (nb, 4) rows [meta0, inst0, meta1, inst1], thread r
+// starts from row r / block instead of the root: stack[0] = meta0 with
+// instance inst0, stack[1] = meta1 with inst1 where meta1 is not
+// 0x7FFFFFFF (so meta1 pops first), both at entry distance 0, and an
+// empty stack when meta0 is 0x7FFFFFFF. A seed is a wide node or a
+// leaf of an instance's BLAS. trace_wide_rebinned (ops/wide.py) builds
+// the table.
 //
 // Design. The TPU walked a block of rays as one packet because it has no
 // vector gather; this card has gathers, so each thread walks its own ray
@@ -44,7 +61,8 @@
 // load latency and divergence, not by DRAM bytes or fp32 throughput:
 // the tables of the Cornell box (about 230 KB) and of the 100-torus
 // assembly (about 280 KB: 98 wide nodes, 5,312 compact triangles) sit
-// in L2. This first version is one thread per ray with a local-memory
+// in L2, and the 54-part distinct assembly's (611,264 compact rows of
+// 48 B, 29 MB, and 3,483 wide nodes) fits its 50 MB. This first version is one thread per ray with a local-memory
 // stack and is not tuned (no shared-memory stack, no ray reordering
 // inside the kernel, no persistent threads).
 //
@@ -77,7 +95,8 @@ wide_trace_kernel(const float* __restrict__ origin,
                   const float* __restrict__ tris,
                   const int32_t* __restrict__ winst,
                   const float* __restrict__ instinv,
-                  const int32_t* __restrict__ wdelta, int n_inst,
+                  const int32_t* __restrict__ wdelta,
+                  const int32_t* __restrict__ start, int block, int n_inst,
                   int n_rays, int any_hit,
                   float* __restrict__ out_t, int32_t* __restrict__ out_tri,
                   float* __restrict__ out_u, float* __restrict__ out_v) {
@@ -110,6 +129,23 @@ wide_trace_kernel(const float* __restrict__ origin,
         stack[0] = -2;
         tstk[0] = 0.0f;
         istk[0] = -1;
+        if (start != nullptr) {  // variant (d): the block's seeds
+            const int32_t* seed = start + (size_t)(r / block) * 4;
+            const int32_t m0 = seed[0];
+            const int32_t m1 = seed[2];
+            stack[0] = m0;
+            if constexpr (INSTANCED) istk[0] = seed[1];
+            sp = 0;
+            if (m0 != EMPTY_SLOT) {
+                sp = 1;
+                if (m1 != EMPTY_SLOT) {
+                    stack[1] = m1;
+                    tstk[1] = 0.0f;
+                    if constexpr (INSTANCED) istk[1] = seed[3];
+                    sp = 2;
+                }
+            }
+        }
 
         while (sp > 0) {
             --sp;
@@ -228,11 +264,13 @@ wide_trace_kernel(const float* __restrict__ origin,
 // instanced != 0 selects variant (b); winst, instinv ((n_inst + 1) x 12,
 // identity last) and wdelta (n_inst + 1, 0 last) are then required, and
 // tris is the compact shared-BLAS table. Variant (a) ignores them.
+// start != NULL selects variant (d): (ceil(n_rays / block), 4) seeds.
 extern "C" int crt_wide_trace(const float* origin, const float* direction,
                               const float* t_max, const float* wboxes,
                               const int32_t* wmeta, const int32_t* worder,
                               const float* tris, const int32_t* winst,
                               const float* instinv, const int32_t* wdelta,
+                              const int32_t* start, int block,
                               int n_inst, int n_rays, int any_hit,
                               int instanced, float* out_t, int32_t* out_tri,
                               float* out_u, float* out_v, void* stream) {
@@ -241,13 +279,13 @@ extern "C" int crt_wide_trace(const float* origin, const float* direction,
     if (instanced) {
         wide_trace_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
             origin, direction, t_max, wboxes, wmeta, worder, tris, winst,
-            instinv, wdelta, n_inst, n_rays, any_hit, out_t, out_tri, out_u,
-            out_v);
+            instinv, wdelta, start, block, n_inst, n_rays, any_hit, out_t,
+            out_tri, out_u, out_v);
     } else {
         wide_trace_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
             origin, direction, t_max, wboxes, wmeta, worder, tris, winst,
-            instinv, wdelta, n_inst, n_rays, any_hit, out_t, out_tri, out_u,
-            out_v);
+            instinv, wdelta, start, block, n_inst, n_rays, any_hit, out_t,
+            out_tri, out_u, out_v);
     }
     return (int)cudaGetLastError();
 }

@@ -68,6 +68,7 @@ def trace(geom, origin, direction, t_max, any_hit: bool = False):
                                     any_hit=any_hit)
         backend = "wide"
     if backend == "wide":
+        # also the reference's fits_wide_hbm branch: K1 reads any table size
         if fits_wide(geom):
             return trace_wide(geom, origin, direction, t_max,
                               any_hit=any_hit)

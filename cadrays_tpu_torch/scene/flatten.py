@@ -8,6 +8,14 @@ scene/instances.py into the same dataclasses. The environment map,
 emissive and texture tables are the placeholders the bounce body reads
 when those features are off.
 
+The reference also builds, for triangle tables above 200,000 rows, a
+copy padded to (T, 128) columns (``tris_hbm``, ``wtris_hbm``): a
+128-column row is the TPU's DMA tiling for its streamed-triangle kernel
+variant. The port never builds it: on the card the kernel reads the
+(T, 12) table from device memory at any size, and the padded copy of a
+611,264-row table would be 313 MB of zeros. Both fields keep their
+(1, 128) placeholders.
+
 ``scene_data_from_numpy`` / ``render_params_from_dict`` rebuild the
 port's dataclasses from plain numpy arrays keyed by field path
 ("geometry.wboxes", "materials.kd", ...), which is how scene data made
@@ -29,10 +37,9 @@ from cadrays_tpu_torch.geometry.mesh import TriangleMesh
 from cadrays_tpu_torch.geometry.wide_bvh import build_wide_bvh
 
 WIDE_LEAF = 64  # the reference's leaf size for every scene
-# wide-kernel triangle tables with more rows than this take the
-# reference's streamed-triangle kernel variant (c) (its
-# scene/flatten.py:437), which is not ported
-_HBM_TRIS_THRESHOLD = 200_000
+# the reference's padded (T, 128) triangle tables, which the port keeps
+# as placeholders (module docstring)
+_PADDED_FIELDS = ("geometry.tris_hbm", "geometry.wtris_hbm")
 
 
 def _f32(*shape, fill=0.0):
@@ -67,7 +74,8 @@ class GeometryData(_TensorTree):
         bitcast(mat_id) | pad | pad]; wboxes (Nw, 48) f32, wmeta/worder
         (Nw, 8) i32: the wide tree (geometry/wide_bvh.py).
     Instancing fields (scene/instances.py) keep the reference's
-    identity placeholders on a baked scene.
+    identity placeholders on a baked scene; tris_hbm and wtris_hbm are
+    always (1, 128) placeholders (module docstring).
     """
 
     vertices: torch.Tensor
@@ -350,7 +358,9 @@ def scene_data_from_numpy(arrays: dict, device="cuda") -> SceneData:
     Keys follow the reference's SceneData field paths, e.g.
     "geometry.wboxes", "materials.kd", "lights.vec"; static fields
     ("geometry.wide_depth", "emissive.count", ...) may be given as
-    scalars and otherwise take their defaults.
+    scalars and otherwise take their defaults. The reference's padded
+    triangle tables are dropped for the placeholders.
     """
     dev = resolve_device(device)
+    arrays = {k: v for k, v in arrays.items() if k not in _PADDED_FIELDS}
     return _from_arrays(SceneData, arrays, "").to(dev)

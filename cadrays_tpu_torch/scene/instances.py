@@ -15,10 +15,13 @@ instances of one (mesh, material) group share one BLAS subtree and one
 range of the compact triangle table ``wtris_packed``; the bridge slot
 of the wide tree carries the instance id (``winst``), and
 ``wdelta[inst]`` maps a compact triangle id back to the fused
-per-instance id. Kernel K1 variant (b) (ops/wide.py) walks it.
-
-Triangle tables above ``_HBM_TRIS_THRESHOLD`` rows need the reference's
-streamed-triangle variant (c), which is not ported: they raise.
+per-instance id. Kernel K1 variant (b) (ops/wide.py) walks it, at any
+size of the compact table: the reference's streamed-triangle variant
+(c) for tables above 200,000 rows is the same kernel on the card, and
+its padded (T, 128) copy ``wtris_hbm`` is not built (scene/flatten.py).
+The only limit is the packing: a leaf holds ``first | count << 24`` and
+a hit id is ``first + k + wdelta`` in int32, so the compact table must
+stay below 2^24 rows (``_check_compact_rows``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,6 @@ from cadrays_tpu_torch.geometry.bvh import ThreadedBVH, build_bvh
 from cadrays_tpu_torch.geometry.mesh import TriangleMesh
 from cadrays_tpu_torch.geometry.wide_bvh import build_wide_bvh
 from cadrays_tpu_torch.scene.flatten import (
-    _HBM_TRIS_THRESHOLD,
     WIDE_LEAF,
     EmissiveData,
     GeometryData,
@@ -240,11 +242,7 @@ def build_instanced(
     g_tri_off = np.concatenate([[0], np.cumsum(g_tris)])[:G]
     Tw = int(sum(g_tris))
     Nw = Nt + int(sum(g_nodes))
-    if Tw + 128 > _HBM_TRIS_THRESHOLD:
-        raise NotImplementedError(
-            f"instanced scene with {Tw} unique triangles: compact tables "
-            f"above {_HBM_TRIS_THRESHOLD} rows need the streamed-triangle "
-            "wide kernel (K1 variant c), not ported yet: ROADMAP item 14")
+    _check_compact_rows(Tw + 128)
 
     w_min = np.zeros((Nw, 3), np.float32)
     w_max = np.zeros((Nw, 3), np.float32)
@@ -301,7 +299,7 @@ def build_instanced(
         winst=_t(wide.winst), worder=_t(wide.worder),
         wide_leaf=wide.max_leaf, wide_depth=wide.max_depth,
         wtris_packed=_t(wtris_packed),
-        wtris_hbm=_f32(1, 128),  # placeholder: variant (c) is not ported
+        wtris_hbm=_f32(1, 128),  # placeholder: never built on the card
         wdelta=_t(wdelta),
         inst_lo=_t(inst_lo), inst_hi=_t(inst_hi),
         inst_bridge=_t(_bridge_metas(wide, n_inst)),
@@ -319,6 +317,15 @@ def build_instanced(
         textures=empty_textures(),
     )
     return data.to(dev)
+
+
+def _check_compact_rows(rows: int) -> None:
+    """A leaf packs its first row in 24 bits, and hit ids are summed in
+    int32 (the reference's float32 ids round above 2^24)."""
+    if rows >= 1 << 24:
+        raise ValueError(
+            f"compact triangle table of {rows} rows: leaves pack their "
+            "first row in 24 bits, so it must stay below 2^24 rows")
 
 
 def _bridge_metas(wide, n_inst: int) -> np.ndarray:

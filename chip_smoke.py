@@ -4,9 +4,10 @@
 
 Needs one CUDA card; exits non-zero, printing no result, without one.
 It builds the three hand-written kernels from this checkout in parallel
-(K1 wide_trace, in its variants (a) and (b) instanced, K2 binary_trace,
-K3 bruteforce), holds each against its plain PyTorch version on the
-card, and drives the port's main paths:
+(K1 wide_trace, in its variants (a), (b) instanced, (c) over a CAD-scale
+table and (d) seeded, K2 binary_trace, K3 bruteforce), holds each
+against its plain PyTorch version on the card, and drives the port's
+main paths:
 - the persistent-wavefront forward render of the full Cornell box
   (262,144 lanes, spp 32, depth 5, 96 steps, then a full 1024x1024
   frame through Renderer.render) once under each traversal backend that
@@ -19,7 +20,13 @@ card, and drives the port's main paths:
 - the instanced CAD assembly of the reference's bench/cad_scale.py (100
   instances of one torus, 518,400 triangles) rendered at 1024x1024 in
   four chunks of 262,144 lanes, depth 5, spp 8, 26 steps, lit (208
-  launches of K1 (b)) and unlit as the reference renders it (104).
+  launches of K1 (b)) and unlit as the reference renders it (104);
+- the assembly of distinct parts of the reference's
+  bench/cad_distinct.py (54 unique parts, 611,136 triangles, a compact
+  table of 611,264 rows: the reference's streamed-triangle variant (c))
+  rendered the same way (208 launches of K1 (c)), with 8 profiled
+  steps; and trace_wide_rebinned on its bounce rays at blocks 2048 and
+  32, each round a launch of K1 (d), held to trace's hits up to ties.
 Each kernel is held against its plain version again on every launch of
 a short render on the rays the main path hands it; the card's render
 is checked against the CPU's; the instanced full Cornell box is held
@@ -82,14 +89,19 @@ def nvidia_smi() -> str:
 
 
 def mt64(g, o, d, tri):
-    """Float64 Moller-Trumbore of each ray against its triangle: the
-    signed distance to the triangle's nearest edge (min of u, v and
+    """Float64 Moller-Trumbore of each ray against its triangle (in the
+    triangle's instance's space on an instanced scene): the signed
+    distance to the triangle's nearest edge (min of u, v and
     1 - u - v), t, and the cosine of incidence, which scales how far
     fp32 rounding can move a ray across an edge or along itself."""
     import torch
 
     rows = g.tris_packed[tri.long()].double()
     o, d = o.double(), d.double()
+    if g.instanced:  # into the triangle's instance's space
+        m = g.inst_inv[g.tri_inst[tri.long()].long()].double()
+        o = (m[:, :, :3] @ o[:, :, None])[..., 0] + m[:, :, 3]
+        d = (m[:, :, :3] @ d[:, :, None])[..., 0]
     p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     pv = torch.linalg.cross(d, e2)
     det = (e1 * pv).sum(-1)
@@ -160,6 +172,9 @@ def k3_vs_k1(g, o, d, tm, any_hit, got, t_rtol=1e-4, t_atol=1e-8,
             "a tie off one of its triangles"
         rows = g.tris_packed[tri.long()]
         n = torch.linalg.cross(rows[:, 3:6], rows[:, 6:9])
+        if g.instanced:  # world normals: the inverse transpose
+            m = g.inst_inv[g.tri_inst[tri.long()].long()][:, :, :3]
+            n = (m.transpose(1, 2) @ n[:, :, None])[..., 0]
         normals.append(n / n.norm(dim=-1, keepdim=True))
     cos = (normals[0] * normals[1]).sum(-1)
     out.update({"tri_differs": n_diff,
@@ -354,8 +369,9 @@ def run_instanced(dev, reset_counts, read_counts, *, grid=10, segments=72, rings
     for c in (0, 2):
         seen = {}
 
-        def checked_launch(g, o, d, tm, any_hit, _seen=seen):
-            got = launch(g, o, d, tm, any_hit)
+        def checked_launch(g, o, d, tm, any_hit, _seen=seen, **kw):
+            assert kw.get("start") is None
+            got = launch(g, o, d, tm, any_hit, **kw)
             ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
             s = _seen.setdefault(any_hit, {"launches": 0, "hits": 0})
             s["launches"] += 1
@@ -500,6 +516,417 @@ def run_instanced(dev, reset_counts, read_counts, *, grid=10, segments=72, rings
             "any_hit_bound_ms": anyh["bound_ms"],
             "unlit_launches": launches[False]}
 
+
+def _profile_steps(render, n_steps, wall_ms_per_step, kernel, key):
+    """Device kernel time and launches per step of `render(n_steps)`
+    under torch.profiler, against an unprofiled wall time per step, and
+    the time of the kernels whose name holds `kernel` (keys `key`_...)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render(n_steps)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert events, "torch.profiler recorded no device kernels"
+    per_name = {}
+    for e in events:
+        per_name[e.name] = (per_name.get(e.name, 0.0)
+                            + e.time_range.elapsed_us())
+    dev_ms = sum(per_name.values()) / n_steps / 1e3
+    k_ms = sum(v for k, v in per_name.items() if kernel in k) / n_steps / 1e3
+    return {"steps": n_steps, "wall_ms_per_step": wall_ms_per_step,
+            "device_ms_per_step": dev_ms,
+            "device_busy_share": dev_ms / wall_ms_per_step,
+            "kernels_per_step": len(events) / n_steps,
+            f"{key}_device_ms_per_step": k_ms,
+            f"{key}_share_of_device": k_ms / dev_ms,
+            "top_kernels_ms_per_step": [
+                [k[:80], v / n_steps / 1e3] for k, v in
+                sorted(per_name.items(), key=lambda kv: -kv[1])[:5]]}
+
+
+# bytes of one wide node (its 8 child boxes and its wmeta, worder and
+# winst rows) and of one compact triangle row
+WIDE_NODE_BYTES = 8 * 6 * 4 + 3 * 8 * 4
+TRI_ROW_BYTES = 12 * 4
+
+
+def _k1_bound(stats, ray_bytes, other_bytes=0):
+    """Least time of a K1 launch (or of a sum of them): the larger of its
+    bytes (the rays' `ray_bytes`, the wide nodes and triangle rows these
+    rays read, each once, and `other_bytes`) over the memory rate, and of
+    its operations (slab tests, triangle tests, per-pop transforms) over
+    the fp32 rate; work and reads counted by trace_wide_ref on the same
+    rays."""
+    ops = (stats["box_tests"] * OPS_PER_BOX_TEST
+           + stats["tri_tests"] * OPS_PER_TRI_TEST
+           + stats["pops"] * OPS_PER_POP_TRANSFORM)
+    nbytes = (ray_bytes + stats["nodes_touched"] * WIDE_NODE_BYTES
+              + stats["rows_touched"] * TRI_ROW_BYTES + other_bytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops, **stats)
+
+
+def run_distinct(dev, reset_counts, read_counts, *, width=1024, spp=8,
+                 n_steps=26, n_syn=65_536, cpu_size=768, check_chunk=2,
+                 prof_steps=8, blocks=(32, 2048), reps=20):
+    """The distinct-parts slice on the card: the reference's
+    bench/cad_distinct.py assembly (54 distinct parts, 611,136
+    triangles, a compact table of 611,264 rows: the reference's
+    streamed-triangle variant (c)) and its K1 (d) rebinned walk.
+    - K1 on the 611k table against its plain version, bit for bit, on
+      the strided camera rays, distinct_bounce_rays and random rays;
+    - the reference's end-to-end render (cad_distinct.py:264-300: four
+      chunks of a 1024x1024 frame, depth 5, spp 8, 26 steps; 208 K1
+      launches), every launch of one chunk held against the plain
+      version, the card against the CPU, and 8 profiled steps;
+    - K1 (c)'s time on the bounce and camera rays against its bound;
+    - trace_wide_rebinned: every K1 (d) launch bit-equal to its plain
+      version with the same seeds, the result equal to trace's up to
+      ties, and its time at each block size (the port's default 32 and
+      the reference's 2048).
+    The CPU render is the largest square whose plain-version render
+    stays under about a minute on the card machine's host (PERF.md).
+    Returns the kernels line's rows for (c) and (d)."""
+    import numpy as np
+    import torch
+
+    from cadrays_tpu_torch.integrator.params import RenderParams
+    from cadrays_tpu_torch.integrator.persistent import render_persistent
+    from cadrays_tpu_torch.integrator.renderer import render_persistent_image
+    from cadrays_tpu_torch.ops import traverse, wide
+    from cadrays_tpu_torch.testing.regression import compare
+    from cadrays_tpu_torch.testing.scenes import (distinct_bounce_rays,
+                                                  distinct_parts)
+
+    traverse.set_backend("wide")
+    params = RenderParams(ray_depth=5)
+    t0 = time.perf_counter()
+    data, cam = distinct_parts(device=dev)
+    t_build = time.perf_counter() - t0
+    geom = data.geometry
+    instinv, wdelta = wide._instance_tables(geom)
+    inst_bytes = sum(t.numel() * t.element_size() for t in (instinv, wdelta))
+    tables = inst_bytes + sum(t.numel() * t.element_size() for t in (
+        geom.wboxes, geom.wmeta, geom.worder, geom.winst, geom.wtris_packed))
+    sizes = {"instances": int(geom.inst_inv.shape[0]),
+             "triangles": int(geom.tri_v.shape[0]),
+             "compact_rows": int(geom.wtris_packed.shape[0]),
+             "wide_nodes": int(geom.wmeta.shape[0]),
+             "wide_depth": int(geom.wide_depth),
+             "wide_leaf": int(geom.wide_leaf),
+             "binary_nodes": int(geom.nodes_packed.shape[0])}
+    # the reference's scene (bench/cad_distinct.py, measured on its build)
+    assert sizes == {"instances": 54, "triangles": 611_136,
+                     "compact_rows": 611_264, "wide_nodes": 3_483,
+                     "wide_depth": 7, "wide_leaf": 64,
+                     "binary_nodes": 371_483}, sizes
+    assert geom.instanced and wide.fits_wide(geom)
+    assert tuple(geom.wtris_hbm.shape) == (1, 128)  # no padded table
+    emit({"phase": "distinct_parts", **sizes, "k1_table_bytes": tables,
+          "build_seconds": t_build})
+
+    # ---- the three ray sets ---------------------------------------------
+    R = width * width // 4
+    inf = torch.full((R,), 1e30, device=dev)
+    spids = torch.arange(R, device=dev) * 4  # strided over the frame
+    zeros = torch.zeros(R, device=dev)
+    c_o, c_d = cam.to(dev).generate_rays((spids % width).float(),
+                                         (spids // width).float(), zeros,
+                                         zeros, width, width)
+    c_o, c_d = c_o.contiguous(), c_d.contiguous()
+    t0 = time.perf_counter()
+    b_o, b_d = distinct_bounce_rays(geom, cam, width, width)
+    t_bounce = time.perf_counter() - t0
+    rng = np.random.default_rng(9)
+    lo = geom.inst_lo.amin(0).cpu().numpy()
+    hi = geom.inst_hi.amax(0).cpu().numpy()
+    pad = 0.1 * (hi - lo)
+    r_o = rng.uniform(lo - pad, hi + pad, (n_syn, 3)).astype(np.float32)
+    r_d = rng.normal(size=(n_syn, 3)).astype(np.float32)
+    r_d /= np.linalg.norm(r_d, axis=-1, keepdims=True)
+    r_o = torch.from_numpy(r_o).to(dev)
+    r_d = torch.from_numpy(r_d).to(dev)
+    r_full = wide.trace_wide_ref(geom, r_o, r_d,
+                                 torch.full((n_syn,), 1e30, device=dev))
+    # every other hit lane capped at half its hit distance (must miss),
+    # every 7th lane dead
+    capped = (r_full["tri"] >= 0) & (torch.arange(n_syn, device=dev) % 2 == 0)
+    r_tm = torch.where(capped, r_full["t"] * 0.5, 1e30)
+    r_tm[::7] = 0.0
+    sets = [("camera_strided", c_o, c_d, inf), ("bounce", b_o, b_d, inf),
+            ("random_capped", r_o, r_d, r_tm.contiguous())]
+    for name, o, d, tm in sets:
+        for any_hit in (False, True):
+            got = wide.trace_wide(geom, o, d, tm, any_hit=any_hit)
+            hits = _bit_equal(got, wide.trace_wide_ref(
+                geom, o, d, tm, any_hit=any_hit), ("k1c", name, any_hit))
+            if name == "random_capped":
+                assert bool((got["tri"][::7] == -1).all())
+                assert not bool((got["tri"][capped] >= 0).any())
+            assert hits > 0, name
+            emit({"phase": "k1c_check", "case": name, "any_hit": any_hit,
+                  "rays": o.shape[0], "hits": hits, "tie_lanes": 0,
+                  "max_abs_err": 0.0})
+
+    # ---- the reference's end-to-end render ------------------------------
+    chunks = [torch.arange(c * R, (c + 1) * R, device=dev) for c in range(4)]
+    render_persistent(data, cam, params, width, width, 1, 2,
+                      pixel_ids=chunks[1][:4096])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done, imgs = 0, []
+    for pids in chunks:
+        img, cnt = render_persistent(data, cam, params, width, width, spp,
+                                     n_steps, pixel_ids=pids)
+        done += int(cnt.sum())
+        imgs.append(img / cnt[:, None].clamp(min=1))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {"wide": 4 * n_steps * 2, "pallas": 0,
+                      "bruteforce": 0}, counts
+    launches_c = counts["wide"]
+    frame = torch.cat(imgs)
+    mean = float(frame.mean())
+    assert bool(torch.isfinite(frame).all()) and mean > 0.005, mean
+    emit({"phase": "distinct_main_path", "call": "render_persistent x 4 chunks",
+          "width": width, "height": width, "lanes": R, "spp": spp,
+          "n_steps": n_steps, "depth": params.ray_depth, "seconds": dt,
+          "samples_per_s": done / dt, "quota_completion": done / (4 * R * spp),
+          "k1c_launches": launches_c, "hdr_mean": mean})
+    wall_ms_per_step = dt / (4 * n_steps) * 1e3
+
+    # ---- K1 on every launch of one chunk that sees the assembly --------
+    launch = wide._launch
+    seen = {}
+
+    def checked_launch(g, o, d, tm, any_hit, start=None, block=None):
+        assert start is None
+        got = launch(g, o, d, tm, any_hit)
+        ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit)
+        s_ = seen.setdefault(any_hit, {"launches": 0, "hits": 0})
+        s_["launches"] += 1
+        s_["hits"] += _bit_equal(got, ref, ("distinct main path", any_hit))
+        return got
+
+    wide._launch = checked_launch
+    try:
+        render_persistent(data, cam, params, width, width, spp, n_steps,
+                          pixel_ids=chunks[check_chunk])
+    finally:
+        wide._launch = launch
+    assert sum(s_["launches"] for s_ in seen.values()) == 2 * n_steps, seen
+    assert seen[False]["hits"] > 0, seen
+    for any_hit, s_ in sorted(seen.items()):
+        emit({"phase": "k1c_main_path_check", "chunk": check_chunk,
+              "lanes": R, "any_hit": any_hit, **s_, "tie_lanes": 0,
+              "max_abs_err": 0.0})
+
+    # ---- the card against the CPU ---------------------------------------
+    small = {}
+    secs = {}
+    for d_ in (dev.type, "cpu"):
+        sd, sc = (data, cam) if d_ == dev.type else distinct_parts(device="cpu")
+        t0 = time.perf_counter()
+        small[d_] = render_persistent_image(sd, sc, params, cpu_size,
+                                            cpu_size, spp=4).cpu().numpy()
+        secs[d_] = time.perf_counter() - t0
+    res = compare(small[dev.type], small["cpu"], pix_tol=0.02)
+    assert res["match"], res
+    emit({"phase": "card_vs_cpu_distinct", "size": cpu_size, "spp": 4,
+          "card_seconds": secs[dev.type], "cpu_seconds": secs["cpu"], **res})
+
+    # ---- where a step's time goes ----------------------------------------
+    prof = _profile_steps(
+        lambda k: render_persistent(data, cam, params, width, width, spp, k,
+                                    pixel_ids=chunks[check_chunk]),
+        prof_steps, wall_ms_per_step, "wide_trace_kernel", "k1")
+    emit({"phase": "step_profile", "scene": "distinct_parts",
+          "chunk": check_chunk, **prof})
+
+    # ---- K1 (c): time against the bound ---------------------------------
+    timing = {}
+    for case, o, d, any_hit in (("hbm_bounce", b_o, b_d, False),
+                                ("hbm_bounce_anyhit", b_o, b_d, True),
+                                ("hbm_coherent", c_o, c_d, False)):
+        stats = {}
+        got = wide.trace_wide(geom, o, d, inf, any_hit=any_hit)
+        hits = _bit_equal(got, wide.trace_wide_ref(
+            geom, o, d, inf, any_hit=any_hit, stats=stats), ("k1c", case))
+        ms = time_ms(lambda: wide.trace_wide(geom, o, d, inf,
+                                             any_hit=any_hit), reps)
+        plain_ms = time_ms(lambda: wide.trace_wide_ref(
+            geom, o, d, inf, any_hit=any_hit), 3)
+        # t_max in and t, tri, u, v out on every lane, o and d in
+        timing[case] = dict(ms=ms, plain_ms=plain_ms, **_k1_bound(
+            stats, R * (4 + 4 * 4 + 6 * 4), inst_bytes))
+        emit({"phase": "k1c_timing", "case": case, "any_hit": any_hit,
+              "rays": R, "live_rays": R, "hits": hits, "tie_lanes": 0,
+              "max_abs_err": 0.0, **timing[case], "library_ms": None,
+              "library_note": "no single PyTorch call traces a BVH"})
+
+    # ---- K1 (d): trace_wide_rebinned on the bounce rays -----------------
+    ref_root = {ah: wide.trace_wide(geom, b_o, b_d, inf, any_hit=ah)
+                for ah in (False, True)}
+    d_stats = {}
+    launches_d = {}
+    for block in blocks:
+        for any_hit in (False, True):
+            reset_counts()
+            st = {}
+            res = wide.trace_wide_rebinned(geom, b_o, b_d, inf,
+                                           any_hit=any_hit, block=block,
+                                           stats=st)
+            torch.cuda.synchronize()
+            n_launch = read_counts()["wide"]
+            assert n_launch == st["rounds"] > 0, (n_launch, st)
+            launches_d[(block, any_hit)] = n_launch
+            # every K1 (d) launch of the same call against its plain
+            # version with the same seeds and block
+            per = {"launches": 0, "hits": 0, "lanes": 0, "pops": 0,
+                   "box_tests": 0, "tri_tests": 0, "nodes_touched": 0,
+                   "rows_touched": 0, "ray_bytes": 0, "plain_ms": 0.0}
+
+            def seeded_launch(g, o, d, tm, any_hit_, start=None, block=None,
+                              _per=per):
+                assert start is not None
+                got = launch(g, o, d, tm, any_hit_, start=start, block=block)
+                lstats = {}
+                torch.cuda.synchronize()
+                t_ref = time.perf_counter()
+                ref = wide.trace_wide_ref(g, o, d, tm, any_hit=any_hit_,
+                                          start=start, block=block,
+                                          stats=lstats)
+                torch.cuda.synchronize()
+                _per["plain_ms"] += (time.perf_counter() - t_ref) * 1e3
+                _per["launches"] += 1
+                _per["hits"] += _bit_equal(got, ref, ("k1d", block, any_hit_))
+                live = int((tm > 0).sum())
+                _per["lanes"] += live
+                for k, v in lstats.items():
+                    _per[k] += v
+                # t_max and the outputs on every lane, o and d on live
+                # lanes, the seeds and instance tables once per launch
+                _per["ray_bytes"] += (o.shape[0] * (4 + 4 * 4) + live * 6 * 4
+                                      + start.numel() * 4 + inst_bytes)
+                return got
+
+            wide._launch = seeded_launch
+            try:
+                again = wide.trace_wide_rebinned(geom, b_o, b_d, inf,
+                                                 any_hit=any_hit, block=block)
+            finally:
+                wide._launch = launch
+            for k in res:
+                assert torch.equal(res[k], again[k]), ("rebinned rerun", k)
+            assert per["launches"] == n_launch, (per, n_launch)
+            # against the walk from the root: t, u, v bit-equal where tri
+            # is; every other lane a tie or within rounding of an edge or
+            # of t_max (k3_vs_k1's contract)
+            root = ref_root[any_hit]
+            gap = k3_vs_k1(geom, b_o, b_d, inf, any_hit, res)
+            if not any_hit:
+                same = (res["tri"] == root["tri"]) & (root["tri"] >= 0)
+                for k in ("t", "u", "v"):
+                    assert torch.equal(res[k][same], root[k][same]), k
+                gap["tri_equal"] = int(same.sum())
+            d_stats[(block, any_hit)] = per
+            emit({"phase": "k1d_check", "block": block, "any_hit": any_hit,
+                  "rays": R, "rounds": st["rounds"], "k1d_launches": n_launch,
+                  **per, "tie_lanes": 0, "max_abs_err": 0.0,
+                  "vs_trace": gap})
+
+    d_timing = {}
+    for block in blocks:
+        for any_hit in (False, True):
+            def call(_b=block, _a=any_hit):
+                return wide.trace_wide_rebinned(geom, b_o, b_d, inf,
+                                                any_hit=_a, block=_b)
+
+            for _ in range(3):
+                call()
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            dev_ms = []
+
+            def timed_launch(*a, _acc=dev_ms, **kw):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = launch(*a, **kw)
+                ev[1].record()
+                _acc[-1].append(ev)
+                return out
+
+            wide._launch = timed_launch
+            try:
+                for _ in range(reps):
+                    dev_ms.append([])
+                    call()
+            finally:
+                wide._launch = launch
+            torch.cuda.synchronize()
+            sums = [sum(a.elapsed_time(b) for a, b in evs) for evs in dev_ms]
+            per = d_stats[(block, any_hit)]
+            d_timing[(block, any_hit)] = dict(
+                wall_ms=statistics.median(walls), rounds=len(dev_ms[0]),
+                ms=statistics.median(sums),
+                **_k1_bound(per, per["ray_bytes"]))
+            emit({"phase": "k1d_timing", "case": "rebin_bounce" + (
+                "_anyhit" if any_hit else ""), "block": block,
+                "any_hit": any_hit, "rays": R, **d_timing[(block, any_hit)],
+                "library_ms": None,
+                "library_note": "no single PyTorch call traces a BVH"})
+
+    kernel = {"route": "cuda", "source": "cadrays_tpu_torch/kernels/"
+              "wide_trace.cu", "max_abs_err": 0.0, "library_ms": None,
+              "check": "passed"}
+    close, anyh = timing["hbm_bounce"], timing["hbm_bounce_anyhit"]
+    row_c = {"name": "wide_trace (c) CAD scale", **kernel,
+             "replaces": "cadrays_tpu/ops/pallas_wide.py:279",
+             "launches": launches_c, "ms": close["ms"],
+             "plain_ms": close["plain_ms"], "bound_ms": close["bound_ms"],
+             "bound_by": close["bound_by"], "any_hit_ms": anyh["ms"],
+             "any_hit_plain_ms": anyh["plain_ms"],
+             "any_hit_bound_ms": anyh["bound_ms"],
+             "coherent_ms": timing["hbm_coherent"]["ms"],
+             "coherent_bound_ms": timing["hbm_coherent"]["bound_ms"],
+             "note": "the kernel of (a) and (b) over a 611,264-row table: "
+                     "the card reads device memory at any table size"}
+    row_d = {"name": "wide_trace (d) seeded", **kernel,
+             "replaces": "cadrays_tpu/ops/pallas_wide.py:221",
+             "note": "trace_wide_rebinned on 262,144 bounce rays: ms, "
+                     "plain_ms and bound summed over its rounds; launches "
+                     "are its rounds"}
+    for block in blocks:
+        pre = "" if block == blocks[0] else f"block_{block}_"
+        close, anyh = d_timing[(block, False)], d_timing[(block, True)]
+        row_d.update({
+            f"{pre}block": block,
+            f"{pre}launches": launches_d[(block, False)],
+            f"{pre}ms": close["ms"],
+            f"{pre}plain_ms": d_stats[(block, False)]["plain_ms"],
+            f"{pre}bound_ms": close["bound_ms"],
+            f"{pre}bound_by": close["bound_by"],
+            f"{pre}wall_ms": close["wall_ms"],
+            f"{pre}any_hit_ms": anyh["ms"],
+            f"{pre}any_hit_plain_ms": d_stats[(block, True)]["plain_ms"],
+            f"{pre}any_hit_bound_ms": anyh["bound_ms"],
+            f"{pre}any_hit_wall_ms": anyh["wall_ms"]})
+    return row_c, row_d
 
 def main() -> int:
     import torch
@@ -662,7 +1089,6 @@ def main() -> int:
     R = (W * H) // 4
     spp, n_steps = 32, 96
     pids = torch.arange(R, device=dev)
-    from torch.profiler import ProfilerActivity, profile
 
     launches, images = {}, {}
     for backend, kn in kern.items():
@@ -712,32 +1138,11 @@ def main() -> int:
         # where a step's time goes: device kernel time and launches per
         # step (torch.profiler over 8 steps of the same call) against the
         # unprofiled wall time per step above
-        prof_steps = 8
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            render_persistent(data, cam, params, W, H, spp, prof_steps,
-                              pixel_ids=pids)
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        per_name = {}
-        for e in events:
-            per_name[e.name] = (per_name.get(e.name, 0.0)
-                                + e.time_range.elapsed_us())
-        dev_ms = sum(per_name.values()) / prof_steps / 1e3
-        k_ms = sum(v for k, v in per_name.items()
-                   if kn["profile"] in k) / prof_steps / 1e3
-        step_ms = dt / n_steps * 1e3
-        assert events, "torch.profiler recorded no device kernels"
         emit({"phase": "step_profile", "backend": backend,
-              "steps": prof_steps, "wall_ms_per_step": step_ms,
-              "device_ms_per_step": dev_ms,
-              "device_busy_share": dev_ms / step_ms,
-              "kernels_per_step": len(events) / prof_steps,
-              f"{kn['k']}_device_ms_per_step": k_ms,
-              "top_kernels_ms_per_step": [
-                  [k[:80], v / prof_steps / 1e3] for k, v in
-                  sorted(per_name.items(), key=lambda kv: -kv[1])[:5]]})
+              **_profile_steps(
+                  lambda k: render_persistent(data, cam, params, W, H, spp,
+                                              k, pixel_ids=pids),
+                  8, dt / n_steps * 1e3, kn["profile"], kn["k"])})
 
         reset_counts()
         t0 = time.perf_counter()
@@ -766,8 +1171,9 @@ def main() -> int:
         seen = {}
 
         def checked_launch(g, o, d, tm, any_hit, _b=backend, _l=launch,
-                           _seen=seen):
-            got = _l(g, o, d, tm, any_hit)
+                           _seen=seen, **kw):
+            assert kw.get("start") is None
+            got = _l(g, o, d, tm, any_hit, **kw)
             hits, ties, err = check(_b, g, o, d, tm, any_hit, got=got)
             s = _seen.setdefault((o.shape[0], any_hit), {
                 "launches": 0, "hits": 0, "tie_lanes": 0,
@@ -871,7 +1277,10 @@ def main() -> int:
     # ---- 7. the instanced slice: K1 variant (b) ------------------------
     k1b = run_instanced(dev, reset_counts, read_counts)
 
-    # ---- 8. kernels ----------------------------------------------------
+    # ---- 8. the distinct-parts slice: K1 variants (c) and (d) ----------
+    k1c, k1d = run_distinct(dev, reset_counts, read_counts)
+
+    # ---- 9. kernels ----------------------------------------------------
     print(smi, flush=True)
     rows = []
     for backend, kn in kern.items():
@@ -893,6 +1302,7 @@ def main() -> int:
                 "source": "cadrays_tpu_torch/kernels/wide_trace.cu",
                 "replaces": "cadrays_tpu/ops/pallas_wide.py:163",
                 **k1b, "check": "passed"})
+            rows += [k1c, k1d]
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -382,23 +382,38 @@ def test_dispatch_on_instanced_scenes(built, backend):
         bruteforce.trace_bruteforce(pg, o, d, tm)
 
 
-def test_streamed_triangle_scenes_raise_item_14(built, monkeypatch):
-    """Compact tables above the threshold need K1 variant (c): both the
-    build and the walker raise, naming item 14, rather than walk
-    another way."""
-    from cadrays_tpu_torch.ops import wide
-    from cadrays_tpu_torch.scene import instances
+def test_compact_tables_above_200k_rows_build_and_trace():
+    """Above the reference's 200,000-row threshold, where its trace
+    takes the streamed-triangle variant (c), the port builds the compact
+    table with no padded (T, 128) copy, and K1's plain version walks it
+    as the port's gather walk does."""
+    from cadrays_tpu_torch.core.bsdf import material
+    from cadrays_tpu_torch.geometry.primitives import torus
+    from cadrays_tpu_torch.ops.traverse import trace_gather
+    from cadrays_tpu_torch.scene.instances import build_instanced
 
-    pg = built["scaled_three"][1].geometry
-    big = pg.replace(wtris_packed=torch.zeros(wide._HBM_TRIS_THRESHOLD + 1,
-                                              12))
-    o = torch.zeros(1, 3)
-    for fn in (wide.trace_wide, wide.trace_wide_ref):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(big, o, o + 1.0, torch.ones(1))
-    monkeypatch.setattr(instances, "_HBM_TRIS_THRESHOLD", 200)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _scaled_three("cadrays_tpu_torch")  # 120 + 128 rows > 200
+    mesh = torus(1.0, 0.35, 330, 310)  # 204,600 triangles
+    tfs = [np.eye(4, dtype=np.float32) for _ in range(2)]
+    tfs[1][:3, 3] = (2.5, 0.5, 0.3)
+    pg = build_instanced([mesh, mesh], tfs, [material()], [0, 0],
+                         device="cpu").geometry
+    assert pg.wtris_packed.shape[0] == 204_600 + 128 > 200_000
+    assert tuple(pg.wtris_hbm.shape) == (1, 128)
+    o, d, tm = _rays(pg, 1024, seed=23)
+    for any_hit in (False, True):
+        _check_walkers(pg, o, d, tm, any_hit, {"port trace_gather": _np(
+            trace_gather(pg, *(torch.from_numpy(a) for a in (o, d, tm)),
+                         any_hit=any_hit))})
+
+
+def test_compact_table_row_limit():
+    """Leaves pack their first row in 24 bits: a compact table of 2^24
+    rows (Tw + 128 >= 2^24) raises, one row fewer builds."""
+    from cadrays_tpu_torch.scene.instances import _check_compact_rows
+
+    _check_compact_rows((1 << 24) - 1)
+    with pytest.raises(ValueError, match="2\\^24"):
+        _check_compact_rows(1 << 24)
 
 
 def test_coherence_key_reads_the_tlas_root(built):
